@@ -3,34 +3,50 @@
 
     python3 chip_smoke.py
 
-Phases, one line each on stdout:
+Phases, one line each on stdout, in this order:
 
   card     the card's name and power limit (nvidia-smi);
   build    nvcc builds every kernel of the path from csrc/ into
            build/gatekeeper_tpu_torch/ (one nvcc per source, in parallel);
-  parity   2,000 pods x 50 constraints and 4 review batches of 64 on
-           TorchDriver("cuda"): results identical to the port's own
-           interpreter driver (RegoDriver);
+  parity   2,000 pods x 50 constraints on TorchDriver("cuda"): 4 review
+           batches of 64 identical to the port's own interpreter driver
+           (RegoDriver);
+  audit_parity  the audit controller on the same clients, 4 host-filesystem
+           join constraints added: AuditManager sweeps from the cache
+           before and after a 2% churn (whole result lists and reports
+           equal to an AuditManager's over the interpreter driver; sweep 2
+           must take the vocab-delta upload), and one direct-list sweep over
+           a FakeCluster holding the churned state, reports equal;
   full     the north-star deployment (100,000 pods x 500 constraints): one
            audit sweep (4 chunks of 32,768 rows) and 8 admission
            micro-batches of 256 reviews through Client.review_many, with
            the time of each phase (encode, stage, dispatch, decode,
-           render); every kernel's launch counter must be > 0 over that
-           run, and a sample of its reviews must match the interpreter;
+           render); the launch counter of every kernel of that path (K1-K4)
+           must be > 0 over that run, and a sample of its reviews must
+           match the interpreter;
+  profile  device-busy against wall seconds (torch.profiler, CUDA
+           activity) for a second, warm-corpus audit sweep and one more
+           review batch, after the counted run;
+  audit_churn  the audit controller at full width across cluster churn:
+           the full phase's client, its last 20 constraints swapped for join
+           constraints; sweep 1 takes a full table upload, then 1,000 pods
+           go and 1,000 new ones come with strings never interned, and
+           sweep 2 must take the vocab-delta upload. Every kernel (K1-K6)
+           must launch over the two sweeps, K5 in sweep 2; a sample of rows
+           is held against the interpreter;
   kernels  each kernel against its plain torch version on inputs the full
-           run gave it (exact equality: every output is bool or int), with
-           the kernel's device time (torch.profiler), the wrapper's wall
-           time per call, the plain version's and, where one PyTorch call
-           computes the same function, that call's; and the least time
-           the card needs for the bytes and operations this input needs;
+           and audit_churn runs gave it (exact equality: every output is
+           bool or int, K5's buffers compared byte for byte), with the
+           kernel's device time (torch.profiler), the wrapper's wall time
+           per call, the plain version's and, where PyTorch's own calls
+           compute the same function, theirs; and the least time the card
+           needs for the bytes and operations this input needs;
   variants each kernel against its plain version on seeded random inputs
            that reach the code paths the in-repo policy does not (K1's
            namespace, scope and selector clauses over many spec rows,
            EGroup sum/max, int32/float32 values, g1/g01 axes, overlay
-           slabs, a hot-row window smaller than the hot rows);
-  profile  device-busy against wall seconds (torch.profiler, CUDA
-           activity) for a second, warm-corpus audit sweep and one more
-           review batch, after the counted run.
+           slabs, a hot-row window smaller than the hot rows, K6 on g0 and
+           with idx1 past g1, K5 at unaligned fills across segments).
 
 The line before the last is the kernel table as one JSON object; the last
 line is {"ok": true, "device": {...}}. Any failing phase raises, and the
@@ -87,6 +103,10 @@ KERNELS = {
                "gatekeeper_tpu/engine/exprs.py:510"),
     "need_tail": ("gatekeeper_tpu_torch/kernels/csrc/need.cu",
                   "gatekeeper_tpu/parallel/sharding.py:852"),
+    "flush_deltas": ("gatekeeper_tpu_torch/kernels/csrc/delta.cu",
+                     "gatekeeper_tpu/parallel/sharding.py:389"),
+    "gather_elem": ("gatekeeper_tpu_torch/kernels/csrc/gather.cu",
+                    "gatekeeper_tpu/engine/exprs.py:564"),
 }
 
 
@@ -96,7 +116,123 @@ KERNEL_FUNCS = {
     "slab_gather": ("slab_kernel",),
     "egroup": ("egroup_kernel",),
     "need_tail": ("need_rows_kernel", "compact_kernel", "pack_kernel"),
+    "flush_deltas": ("delta_kernel",),
+    "gather_elem": ("gather_elem_kernel",),
 }
+
+# the kernels each counted path must launch
+PATH_KERNELS = {
+    "full": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "audit_churn": tuple(KERNELS),
+}
+
+# A two-array join in the shape of gatekeeper-library's
+# pod-security-policy/host-filesystem: volumes x containers' volumeMounts
+# x allowedHostPaths. The symbolic compiler projects the second array
+# (SElemProj) and reads each mount's name and readOnly flag through
+# EGatherElem on the g01 axis.
+HOSTFS_REGO = """package k8spsphostfilesystem
+
+violation[{"msg": msg, "details": {}}] {
+    volume := input_hostpath_volumes[_]
+    allowedPaths := get_allowed_paths(input)
+    input_hostpath_violation(allowedPaths, volume)
+    msg := sprintf("HostPath volume %v is not allowed, pod: %v. Allowed path: %v", [volume, input.review.object.metadata.name, allowedPaths])
+}
+
+input_hostpath_violation(allowedPaths, _) {
+    allowedPaths == []
+}
+input_hostpath_violation(allowedPaths, volume) {
+    not input_hostpath_allowed(allowedPaths, volume)
+}
+
+get_allowed_paths(arg) = out {
+    not arg.parameters
+    out = []
+}
+get_allowed_paths(arg) = out {
+    not arg.parameters.allowedHostPaths
+    out = []
+}
+get_allowed_paths(arg) = out {
+    out = arg.parameters.allowedHostPaths
+}
+
+input_hostpath_allowed(allowedPaths, volume) {
+    allowedHostPath := allowedPaths[_]
+    path_matches(allowedHostPath.pathPrefix, volume.hostPath.path)
+    not allowedHostPath.readOnly == true
+}
+
+input_hostpath_allowed(allowedPaths, volume) {
+    allowedHostPath := allowedPaths[_]
+    path_matches(allowedHostPath.pathPrefix, volume.hostPath.path)
+    allowedHostPath.readOnly
+    not writeable_input_volume_mounts(volume.name)
+}
+
+writeable_input_volume_mounts(volume_name) {
+    container := input_containers[_]
+    mount := container.volumeMounts[_]
+    mount.name == volume_name
+    not mount.readOnly
+}
+
+path_matches(prefix, path) {
+    a := path_array(prefix)
+    b := path_array(path)
+    prefix_matches(a, b)
+}
+
+path_array(p) = out {
+    p != "/"
+    out := split(trim(p, "/"), "/")
+}
+
+path_array("/") = []
+
+prefix_matches(a, b) {
+    count(a) <= count(b)
+    not any_not_equal_upto(a, b, count(a))
+}
+
+any_not_equal_upto(a, b, n) {
+    a[i] != b[i]
+    i < n
+}
+
+input_hostpath_volumes[v] {
+    v := input.review.object.spec.volumes[_]
+    has_field(v, "hostPath")
+}
+
+has_field(object, field) = true {
+    object[field]
+}
+
+input_containers[c] {
+    c := input.review.object.spec.containers[_]
+}
+input_containers[c] {
+    c := input.review.object.spec.initContainers[_]
+}
+input_containers[c] {
+    c := input.review.object.spec.ephemeralContainers[_]
+}
+"""
+
+# allowedHostPaths per join constraint, cycled: every one admits the
+# corpus's read-only /var/log/app mounts, so the join does its work on
+# every hostPath pod and flags only the churned pods' paths
+JOIN_PARAMS = [
+    [{"pathPrefix": "/var/log", "readOnly": True}],
+    [{"pathPrefix": "/var"}],
+    [{"pathPrefix": "/var/log/app", "readOnly": True}, {"pathPrefix": "/tmp"}],
+    [{"pathPrefix": "/srv", "readOnly": True},
+     {"pathPrefix": "/var/log", "readOnly": True}],
+    [{"pathPrefix": "/"}],
+]
 
 
 def template_docs():
@@ -200,6 +336,75 @@ def review_batch(seed: int, size: int):
     return out
 
 
+def hostfs_template():
+    return {
+        "apiVersion": "templates.gatekeeper.sh/v1beta1",
+        "kind": "ConstraintTemplate",
+        "metadata": {"name": "k8spsphostfilesystem"},
+        "spec": {
+            "crd": {"spec": {"names": {"kind": "K8sPSPHostFilesystem"}}},
+            "targets": [{"target": TARGET, "rego": HOSTFS_REGO}],
+        },
+    }
+
+
+def join_constraint_docs(n: int, actions=("deny",)):
+    """n host-filesystem constraints over Pods, allowedHostPaths cycled
+    through JOIN_PARAMS and enforcement actions through `actions`."""
+    out = []
+    for i in range(n):
+        spec = {
+            "match": {"kinds": [{"apiGroups": [""], "kinds": ["Pod"]}]},
+            "parameters": {"allowedHostPaths": JOIN_PARAMS[i % len(JOIN_PARAMS)]},
+        }
+        action = actions[i % len(actions)]
+        if action != "deny":
+            spec["enforcementAction"] = action
+        out.append({
+            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": "K8sPSPHostFilesystem",
+            "metadata": {"name": f"hostfs{i}"},
+            "spec": spec,
+        })
+    return out
+
+
+def churn_pod(j: int):
+    """A pod the sync controller adds between sweeps: a new name, image
+    tag, label and, on every third pod, a hostPath the corpus never held,
+    mounted writable on every other one of those."""
+    pod = make_pod(2_000_000 + j, name=f"churn-{j}")
+    pod["metadata"]["labels"]["rollout"] = f"r{j}"
+    pod["spec"]["containers"][0]["image"] = f"nginx:1.{j}-churn"
+    if j % 3 == 0:
+        pod["spec"]["volumes"] = [
+            {"name": "scratch", "hostPath": {"path": f"/srv/churn{j}/data"}},
+        ]
+        pod["spec"]["containers"][0]["volumeMounts"] = [
+            {"name": "scratch", "mountPath": "/scratch",
+             "readOnly": j % 2 == 0},
+        ]
+    return pod
+
+
+def report_key(report):
+    """An AuditReport as plain data: totals, totals by enforcement
+    action, and each constraint's status with its capped, truncated
+    violations, in the manager's order."""
+    return {
+        "timestamp": report.timestamp,
+        "total": report.total_violations,
+        "by_action": dict(report.by_enforcement_action),
+        "statuses": [
+            (key, st.constraint_kind, st.constraint_name, st.audit_timestamp,
+             st.total_violations,
+             [(v.message, v.enforcement_action, v.kind, v.name, v.namespace)
+              for v in st.violations])
+            for key, st in report.statuses.items()
+        ],
+    }
+
+
 def build_client(driver, n_pods: int, n_constraints: int):
     from gatekeeper_tpu_torch.constraint import Backend, K8sValidationTarget
 
@@ -262,19 +467,25 @@ def _device_ms(fn, kernels=None, reps: int = 10) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        parts = (e.key or "").split("<")[0].split("(")[0].split()
-        name = parts[-1] if parts else ""
-        if kernels is None or name in kernels:
-            us += _device_time_us(e)
-    if us <= 0.0:
-        raise AssertionError(f"profiler saw no device time for {kernels}")
-    return us / 1e3 / reps
+    # a profile that records no device activity at all happened once
+    # after a long run; take the measurement again before giving up
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        seen = []
+        for e in prof.key_averages():
+            parts = (e.key or "").split("<")[0].split("(")[0].split()
+            name = parts[-1] if parts else ""
+            seen.append((name, _device_time_us(e)))
+            if kernels is None or name in kernels:
+                us += _device_time_us(e)
+        if us > 0.0:
+            return us / 1e3 / reps
+    raise AssertionError(
+        f"profiler saw no device time for {kernels}: {seen[:12]}")
 
 
 def _nbytes(*ts) -> int:
@@ -310,6 +521,9 @@ def phase_build():
 
 def phase_parity(device: str, n_pods: int = 2000, n_constraints: int = 50,
                  n_batches: int = 4, batch: int = 64):
+    """Review batches on TorchDriver against the interpreter driver. The
+    audit of the same corpus is compared in phase_audit_parity, whole
+    result lists included. -> (port client, reference client, driver)."""
     from gatekeeper_tpu_torch.constraint import RegoDriver
     from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver
 
@@ -317,13 +531,6 @@ def phase_parity(device: str, n_pods: int = 2000, n_constraints: int = 50,
     drv = TorchDriver(device)
     port = build_client(drv, n_pods, n_constraints)
     ref = build_client(RegoDriver(), n_pods, n_constraints)
-    got = port.audit().by_target[TARGET].results
-    want = ref.audit().by_target[TARGET].results
-    if _keys(got) != _keys(want):
-        raise AssertionError(
-            f"parity: audit differs ({len(got)} vs {len(want)} results)"
-        )
-    audit_stats = dict(drv.stats)
     n_review = 0
     for b in range(n_batches):
         objs = review_batch(900 + b, batch)
@@ -334,11 +541,27 @@ def phase_parity(device: str, n_pods: int = 2000, n_constraints: int = 50,
         n_review += sum(len(x) for x in g)
     print(json.dumps({
         "phase": "parity", "pods": n_pods, "constraints": n_constraints,
-        "audit_results": len(got), "review_results": n_review,
-        "compiled_pairs": audit_stats["compiled_pairs"],
-        "interp_pairs": audit_stats["interp_pairs"],
+        "review_results": n_review,
+        "compiled_pairs": drv.stats["compiled_pairs"],
+        "interp_pairs": drv.stats["interp_pairs"],
         "seconds": time.perf_counter() - t0,
     }), flush=True)
+    return port, ref, drv
+
+
+def _keep_audit(client):
+    """Wrap client.audit so that its latest response stays readable (the
+    manager keeps only the capped report); `del client.audit` undoes it.
+    -> the dict holding the response under "resp"."""
+    kept = {}
+    audit = client.audit
+
+    def audit_kept(*a, **kw):
+        kept["resp"] = audit(*a, **kw)
+        return kept["resp"]
+
+    client.audit = audit_kept
+    return kept
 
 
 class Recorder:
@@ -362,13 +585,22 @@ class Recorder:
         def rec(*args, **kw):
             key = _variant(name, args, kw)
             if key not in self.calls[name]:
-                self.calls[name][key] = (args, kw)
+                kept = args
+                if name == "flush_deltas":
+                    # K5 writes its buffers in place: keep them as the
+                    # call found them
+                    kept = ([b.clone() for b in args[0]],) + tuple(args[1:])
+                self.calls[name][key] = (kept, kw)
             return fn(*args, **kw)
 
         return rec
 
 
 def _variant(name, args, kw):
+    if name == "flush_deltas":
+        return (len(args[0]), sum(int(d.shape[0]) for d in args[2]))
+    if name == "gather_elem":
+        return (args[3], str(args[0].dtype), args[6])
     if name == "slab_gather":
         tab, ids = args[0], args[1]
         ov = args[2] if len(args) > 2 else kw.get("ov")
@@ -398,7 +630,7 @@ def phase_full(device: str, n_pods: int = 100_000, n_constraints: int = 500,
         t1 = time.perf_counter()
         results = client.audit().by_target[TARGET].results
         audit_s = time.perf_counter() - t1
-        audit_stats = dict(drv.stats)
+        audit_stats = dict(drv.stats, upload=_upload(drv.stats))
         audit_launches = dict(ops.LAUNCHES)
         batch_stats = []
         batch_objs = []
@@ -418,7 +650,7 @@ def phase_full(device: str, n_pods: int = 100_000, n_constraints: int = 500,
     finally:
         rec.remove()
     if torch.device(device).type == "cuda":
-        missing = [k for k, v in launches.items() if v <= 0]
+        missing = [k for k in PATH_KERNELS["full"] if launches[k] <= 0]
         if missing:
             raise AssertionError(f"full: kernels never launched: {missing}")
     # correctness by the repo's own means: a sample of reviews (every
@@ -461,6 +693,215 @@ def phase_full(device: str, n_pods: int = 100_000, n_constraints: int = 500,
         "launches": launches, "sample_checked": len(sample),
     }, default=float), flush=True)
     return rec, launches, client, drv
+
+
+def _audit_managers(clients, cluster=None, now=None):
+    """One AuditManager per client, all reading the same clock."""
+    from gatekeeper_tpu_torch.audit import AuditManager, InMemorySink
+
+    kw = {"audit_interval": 3600, "msg_size": 96}
+    if now is not None:
+        kw["now"] = now
+    if cluster is not None:
+        kw.update(audit_from_cache=False, cluster=cluster)
+    return [
+        AuditManager(c, TARGET, sink=InMemorySink(), **kw) for c in clients
+    ]
+
+
+def phase_audit_parity(port, ref, drv, n_pods: int = 2000, n_join: int = 4,
+                       churn: float = 0.02):
+    """AuditManager over the parity phase's TorchDriver client against
+    AuditManager over its interpreter client, after adding n_join
+    host-filesystem join constraints: from-cache sweeps before and after a
+    churn of `churn` of the pods (whole result lists and reports equal;
+    the managers share a fixed clock, so timestamps agree too), then one
+    direct-list sweep over a FakeCluster holding the churned state."""
+    from gatekeeper_tpu_torch.control import FakeCluster
+
+    t0 = time.perf_counter()
+    clients = [port, ref]
+    joins = join_constraint_docs(n_join, actions=("deny", "dryrun", "warn"))
+    for c in clients:
+        c.add_template(hostfs_template())
+        for j in joins:
+            c.add_constraint(j)
+    fixed = lambda: 1_760_000_000.0  # noqa: E731
+    mgrs = _audit_managers(clients, now=fixed)
+    kept = [_keep_audit(c) for c in clients]
+    out = {"phase": "audit_parity", "join_constraints": n_join}
+    uploads = []
+    try:
+        for sweep in ("sweep1", "sweep2"):
+            if sweep == "sweep2":
+                n_churn = int(n_pods * churn)
+                gone = list(range(0, n_pods, n_pods // n_churn))[:n_churn]
+                for c in clients:
+                    for i in gone:
+                        c.remove_data(make_pod(i))
+                    for j in range(n_churn):
+                        c.add_data(churn_pod(j))
+            got, want = (report_key(m.audit()) for m in mgrs)
+            uploads.append(_upload(drv.stats))
+            res = [_keys(k["resp"].by_target[TARGET].results) for k in kept]
+            if res[0] != res[1]:
+                raise AssertionError(f"audit parity: {sweep} results differ")
+            if got != want:
+                raise AssertionError(f"audit parity: {sweep} reports differ")
+            out[sweep] = {"results": len(res[0]), "total": got["total"],
+                          "by_action": got["by_action"],
+                          "statuses": len(got["statuses"]),
+                          "upload": uploads[-1]}
+    finally:
+        for c in clients:
+            del c.audit
+    if uploads[1]["full_uploads"] or not uploads[1]["delta_flushes"]:
+        raise AssertionError(f"audit parity: sweep 2 upload {uploads[1]}")
+    cluster = FakeCluster()
+    for ns in range(23):
+        cluster.apply({"apiVersion": "v1", "kind": "Namespace",
+                       "metadata": {"name": f"ns{ns}"}})
+    gone_set = set(gone)
+    for i in range(n_pods):
+        if i not in gone_set:
+            cluster.apply(make_pod(i))
+    for j in range(n_churn):
+        cluster.apply(churn_pod(j))
+    got, want = (
+        report_key(m.audit())
+        for m in _audit_managers(clients, cluster=cluster, now=fixed)
+    )
+    if got != want:
+        raise AssertionError("audit parity: direct-list reports differ")
+    out.update(pods=n_pods, churned=n_churn,
+               direct={"total": got["total"], "by_action": got["by_action"]},
+               seconds=time.perf_counter() - t0)
+    print(json.dumps(out), flush=True)
+
+
+def _upload(stats):
+    """A query's upload counters, the names of wholly uploaded tables
+    reduced to their number."""
+    up = dict(stats["upload"])
+    up["full_tables"] = len(up["full_tables"])
+    return up
+
+
+def _vocab_fill(drv):
+    """(rows filled, rows of capacity) of the resident vocab tables."""
+    ent = next(iter(drv.kernel._resident.values()))
+    return ent.fill, int(ent.buf.shape[0])
+
+
+def phase_audit_churn(client, drv, rec, n_constraints: int = 500,
+                      n_join: int = 20, n_churn: int = 1000):
+    """The audit controller at full width across cluster churn: the full
+    phase's client, its last n_join constraints swapped for join
+    constraints (a policy change: sweep 1 uploads the tables whole), then
+    n_churn pods removed and n_churn new ones added (sweep 2 re-encodes
+    the corpus and must ship only the new vocab rows). Counts every
+    kernel's launches over both sweeps."""
+    import torch
+    from gatekeeper_tpu_torch.audit import AuditManager, InMemorySink
+    from gatekeeper_tpu_torch.constraint import AugmentedUnstructured, RegoDriver
+    from gatekeeper_tpu_torch.kernels import ops
+
+    n_pods = len(drv._corpus[TARGET].reviews)
+    gone = list(range(0, n_pods, n_pods // n_churn))[:n_churn]
+    swapped = constraint_docs(n_constraints)[-n_join:]
+    joins = join_constraint_docs(n_join)
+    kept = {}
+    audit = client.audit
+
+    def audit_kept(*a, **kw):
+        kept["resp"] = audit(*a, **kw)
+        return kept["resp"]
+
+    client.audit = audit_kept  # the manager's sweep results, kept whole
+    mgr = AuditManager(client, TARGET, sink=InMemorySink(), audit_interval=3600)
+    sweeps = []
+    rec.install()
+    ops.reset_launches()
+    try:
+        for sweep in ("sweep1", "sweep2"):
+            t0 = time.perf_counter()
+            if sweep == "sweep1":
+                for c in swapped:
+                    client.remove_constraint(c)
+                client.add_template(hostfs_template())
+                for c in joins:
+                    client.add_constraint(c)
+            else:
+                for i in gone:
+                    client.remove_data(make_pod(i))
+                for j in range(n_churn):
+                    client.add_data(churn_pod(j))
+            t1 = time.perf_counter()
+            report = mgr.audit()
+            if drv.device.type == "cuda":
+                torch.cuda.synchronize()
+            fill, cap = _vocab_fill(drv)
+            sweeps.append({
+                "sweep": sweep, "change_seconds": t1 - t0,
+                "wall_seconds": time.perf_counter() - t1,
+                "violations": report.total_violations,
+                "by_action": report.by_enforcement_action,
+                "phase_seconds": drv.stats["phase_seconds"],
+                "upload": _upload(drv.stats),
+                "vocab_rows": fill, "vocab_capacity": cap,
+                "launches": dict(ops.LAUNCHES),
+            })
+        launches = dict(ops.LAUNCHES)
+    finally:
+        rec.remove()
+        del client.audit
+    up1, up2 = sweeps[0]["upload"], sweeps[1]["upload"]
+    if not up1["full_uploads"]:
+        raise AssertionError(f"audit churn: sweep 1 took no full upload {up1}")
+    if up2["full_uploads"] or not up2["delta_flushes"]:
+        raise AssertionError(f"audit churn: sweep 2 was no delta upload {up2}")
+    if drv.device.type == "cuda":
+        missing = [k for k in PATH_KERNELS["audit_churn"] if launches[k] <= 0]
+        if missing:
+            raise AssertionError(
+                f"audit churn: kernels never launched: {missing}")
+        k5 = [sw["launches"]["flush_deltas"] for sw in sweeps]
+        if k5[1] <= k5[0]:
+            raise AssertionError("audit churn: sweep 2 launched no K5")
+    # correctness by the repo's own means: sampled pods of sweep 2 (new
+    # pods with and without hostPaths, corpus pods that violate, clean
+    # ones) equal the interpreter driver's answer
+    ref = build_client(RegoDriver(), 0, n_constraints)
+    for c in swapped:
+        ref.remove_constraint(c)
+    ref.add_template(hostfs_template())
+    for c in joins:
+        ref.add_constraint(c)
+    by_pod = {}
+    for r in kept["resp"].by_target[TARGET].results:
+        by_pod.setdefault(r.review["object"]["metadata"]["name"], []).append(r)
+    sample = [churn_pod(j) for j in range(12)]
+    bad = sorted(k for k in by_pod if k.startswith("p"))[:6]
+    sample += [make_pod(int(k[1:])) for k in bad]
+    sample += [make_pod(i) for i in range(1, 40)
+               if i not in set(gone) and f"p{i}" not in by_pod][:4]
+    for obj in sample:
+        name = obj["metadata"]["name"]
+        want = _keys(ref.review(AugmentedUnstructured(obj)).by_target[TARGET].results)
+        if sorted(want) != sorted(_keys(by_pod.get(name, []))):
+            raise AssertionError(f"audit churn: {name} differs from interp")
+    n_join_viol = sum(
+        1 for rs in by_pod.values() for r in rs
+        if r.constraint["kind"] == "K8sPSPHostFilesystem"
+    )
+    print(json.dumps({
+        "phase": "audit_churn", "pods": n_pods,
+        "constraints": n_constraints, "join_constraints": n_join,
+        "churned": n_churn, "sweeps": sweeps,
+        "join_violations_sweep2": n_join_viol,
+        "sample_checked": len(sample), "launches": launches,
+    }, default=float), flush=True)
+    return launches
 
 
 def _match_needs(ms, fb, n: int):
@@ -538,6 +979,7 @@ def _bound(name, args, out):
     selects, moves; counted per live element) over the card's peak rate
     outside the tensor cores. The bound is the larger of the two."""
     import torch
+    from gatekeeper_tpu_torch.kernels import ops as ops_mod
 
     if name == "match_matrix":
         ms, fb = args
@@ -558,6 +1000,24 @@ def _bound(name, args, out):
             sum(t.element_size() for t in idx) + val.element_size()
         )
         ops = 2 * mask.numel() + 6 * n_live + 3 * out.numel()
+    elif name == "flush_deltas":
+        # each delta byte read once from the staging copy, written once
+        delta = sum(
+            int(d.shape[0]) * buf[0].numel() * buf.element_size()
+            for buf, d in zip(args[0], args[2])
+        )
+        b = 2 * delta
+        ops = 2 * delta // 16  # one 16-byte load and store per vector
+    elif name == "gather_elem":
+        v, idx0, idx1, axis = args[:4]
+        g0, g1 = args[4], args[5]
+        idx, g = ops_mod.elem_index(idx0, idx1, axis, g0, g1)
+        live = (idx >= 0) & (idx < g)
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None] * g
+        gathered = torch.unique((rows + idx)[live]).numel()
+        b = (_nbytes(idx0, out) + (_nbytes(idx1) if axis == "g01" else 0)
+             + gathered * v.element_size())
+        ops = 4 * out.numel()  # index, bounds test, select, move
     else:
         match_u, spec_map, viol, compiled, row_fb, n_valid = args[:6]
         r_cap = args[6]
@@ -579,15 +1039,37 @@ def _bound(name, args, out):
 
 
 def _library_call(name, args):
-    """One PyTorch call computing the same function, where one exists."""
+    """PyTorch's own calls computing the same function, where they exist:
+    -> (callable, label) or None."""
     import torch
+    from gatekeeper_tpu_torch.kernels import ops
 
+    if name == "flush_deltas":
+        bufs, fills, deltas = args
+        scratch = [b.clone() for b in bufs]
+        dev = [torch.as_tensor(d).to(b.dtype).to(b.device)
+               for b, d in zip(bufs, deltas)]
+
+        def per_table():
+            for buf, fill, d in zip(scratch, fills, dev):
+                buf[fill:fill + d.shape[0]].copy_(d)
+
+        return per_table, f"copy_ per table ({len(bufs)} calls)"
+    if name == "gather_elem":
+        v, idx0, idx1, axis, g0, g1, default = args
+        idx, g = ops.elem_index(idx0, idx1, axis, g0, g1)
+        safe = torch.clamp(idx, 0, g - 1).long()
+        live = (idx >= 0) & (idx < g)
+        return (
+            lambda: torch.where(live, torch.gather(v, 1, safe), default),
+            "torch.gather + torch.where (two calls; index untimed)",
+        )
     if name == "slab_gather":
         tab, ids = args[0], args[1]
         ov = args[2] if len(args) > 2 else None
         if ov is None and int(ids.min()) >= 0 and int(ids.max()) < tab.shape[0]:
             flat = ids.reshape(-1).long()
-            return lambda: torch.index_select(tab, 0, flat)
+            return lambda: torch.index_select(tab, 0, flat), "index_select"
     return None
 
 
@@ -760,6 +1242,36 @@ def _random_variants(device, seed: int = 7):
     for r_cap in (64, 1024, 8192):
         out.append(("need_tail", (match_u, spec_map, viol, compiled, row_fb,
                                   n2 - 77, r_cap), {}))
+    # K6: g0 and g01 (idx1 >= g1 runs into the next element, idx -1 and
+    # idx >= G take the default) over every value type
+    n, l, g0, g1 = 4096, 96, 16, 8
+    idx0 = t(r.integers(-1, g0 + 2, (n, l)).astype(np.int32))
+    idx1 = t(r.integers(-1, g1 + 3, (n, l)).astype(np.int32))
+    for axis, g in (("g0", g0), ("g01", g0 * g1)):
+        for v, default in (
+            (t(r.random((n, g)) < 0.5), False),
+            (t(r.integers(-3, 900, (n, g)).astype(np.int32)), -1),
+            (t(r.integers(-3, 900, (n, g)).astype(np.float32)), -(10.0**30)),
+        ):
+            out.append(("gather_elem",
+                        (v, idx0, idx1, axis, g0, g1, default), {}))
+    # K5: tables of every type at fills that leave the destination
+    # unaligned, deltas from 1 row to past one 64 KiB segment, some of
+    # them cast on the host
+    bufs, fills, deltas = [], [], []
+    for k, (dt, width, fill, rows) in enumerate((
+        (np.bool_, 1, 4093, 512), (np.int32, 1, 777, 1024),
+        (np.float32, 1, 0, 512), (np.bool_, 23, 1001, 4096),
+        (np.int32, 7, 5, 1536), (np.float32, 3, 4095, 512),
+        (np.bool_, 1, 12000, 1),
+    )):
+        shape = (16384,) if width == 1 else (16384, width)
+        bufs.append(t(np.zeros(shape, dt)))
+        fills.append(fill)
+        dshape = (rows,) + shape[1:]
+        src = r.integers(-50, 50, dshape)
+        deltas.append(src.astype(np.float64 if k % 2 else dt))
+    out.append(("flush_deltas", (bufs, fills, deltas), {}))
     return out
 
 
@@ -768,17 +1280,11 @@ def phase_variants():
     import torch
     from gatekeeper_tpu_torch.kernels import ops
 
-    plain = {
-        "match_matrix": ops.match_matrix_plain,
-        "egroup": ops.egroup_plain,
-        "slab_gather": ops.slab_gather_plain,
-        "need_tail": ops.need_tail_plain,
-    }
     checked = {}
     match_rate = []
     for i, (name, args, kw) in enumerate(_random_variants("cuda")):
-        got = getattr(ops, name)(*args, **kw)
-        want = plain[name](*args, **kw)
+        got = _flat(getattr(ops, name)(*_fresh(name, args), **kw))
+        want = _flat(_plain(name)(*_fresh(name, args), **kw))
         torch.cuda.synchronize()
         if got.dtype != want.dtype or not torch.equal(got, want):
             raise AssertionError(f"variants: {name} #{i} differs")
@@ -792,16 +1298,35 @@ def phase_variants():
                       "match_rates": match_rate}), flush=True)
 
 
+def _plain(name):
+    """The plain torch version beside a kernel's wrapper."""
+    from gatekeeper_tpu_torch.kernels import ops
+
+    return getattr(ops, name + "_plain")
+
+
+def _fresh(name, args):
+    """A kernel's arguments for one more call: K5 gets its own copy of
+    the buffers it writes."""
+    if name == "flush_deltas":
+        return ([b.clone() for b in args[0]],) + tuple(args[1:])
+    return args
+
+
+def _flat(out):
+    """K5 returns its buffers: compare them as one flat byte tensor."""
+    import torch
+
+    if isinstance(out, list):
+        return torch.cat([b.reshape(-1).view(torch.uint8) for b in out])
+    return out
+
+
 def phase_kernels(rec, launches):
+    """-> the kernel table rows. `launches`: {path: {kernel: count}}."""
     import torch
     from gatekeeper_tpu_torch.kernels import ops
 
-    plain = {
-        "match_matrix": ops.match_matrix_plain,
-        "slab_gather": ops.slab_gather_plain,
-        "egroup": ops.egroup_plain,
-        "need_tail": ops.need_tail_plain,
-    }
     rows = []
     for name, (src, replaces) in KERNELS.items():
         calls = rec.calls[name]
@@ -811,8 +1336,8 @@ def phase_kernels(rec, launches):
         entry = None
         for key, (args, kw) in calls.items():
             kern = getattr(ops, name)
-            out_k = kern(*args, **kw)
-            out_p = plain[name](*args, **kw)
+            out_k = _flat(kern(*_fresh(name, args), **kw))
+            out_p = _flat(_plain(name)(*_fresh(name, args), **kw))
             torch.cuda.synchronize()
             if out_k.shape != out_p.shape or out_k.dtype != out_p.dtype:
                 raise AssertionError(
@@ -828,30 +1353,39 @@ def phase_kernels(rec, launches):
                 entry = (args, kw, out_k, key)
         args, kw, out_k, key = entry
         kern = getattr(ops, name)
+        # K5 writes in place; writing the same delta again is idempotent,
+        # so the timed calls reuse one copy of the buffers each
+        args_k, args_p = _fresh(name, args), _fresh(name, args)
 
         def call_kernel():
-            return kern(*args, **kw)
+            return kern(*args_k, **kw)
 
         def call_plain():
-            return plain[name](*args, **kw)
+            return _plain(name)(*args_p, **kw)
 
-        lib = _library_call(name, args)
+        lib, lib_label = _library_call(name, args) or (None, None)
         bound_ms, bound_by, bytes_ms, ops_ms = _bound(name, args, out_k)
         rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": sum(n.get(name, 0) for n in launches.values()),
+            "launches_by_path": {p: n.get(name, 0) for p, n in launches.items()},
             "max_abs_err": worst,
             # device time of the kernel's own launches, and the wall time
             # per wrapper call (host issue included)
             "ms": _device_ms(call_kernel, KERNEL_FUNCS[name]),
             "host_ms": _time_ms(call_kernel),
             # every device op of one plain / library call
+            # all device work of one wrapper call (K5: the staging
+            # copy to the device as well)
+            "wrapper_device_ms": _device_ms(call_kernel),
             "plain_ms": _device_ms(call_plain, reps=3),
             "plain_wall_ms": _time_ms(call_plain, reps=3),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes_ms": bytes_ms, "operations_ms": ops_ms,
             "library_ms": _device_ms(lib) if lib is not None else None,
             "library_wall_ms": _time_ms(lib) if lib is not None else None,
+            "library_call": lib_label,
             "timed_shape": [list(out_k.shape), str(out_k.dtype), str(key)],
             "variants_checked": len(calls),
         })
@@ -871,11 +1405,14 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     phase_card()
     phase_build()
-    phase_parity("cuda")
-    rec, launches, client, drv = phase_full("cuda")
-    rows = phase_kernels(rec, launches)
-    phase_variants()
+    phase_audit_parity(*phase_parity("cuda"))
+    rec, launches_full, client, drv = phase_full("cuda")
     phase_profile(client, drv)
+    launches_churn = phase_audit_churn(client, drv, rec)
+    rows = phase_kernels(
+        rec, {"full": launches_full, "audit_churn": launches_churn}
+    )
+    phase_variants()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "ok": True,

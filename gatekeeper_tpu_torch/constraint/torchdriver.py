@@ -544,7 +544,13 @@ class TorchDriver(RegoDriver):
                 "policy": t_policy - t_start,
                 "encode": encode_s + time.perf_counter() - t_policy,
             }
+            up0 = dict(self.kernel.uploads)
             pairs, stat_c, stat_i = self._need_pairs(cs, corpus, phases)
+            upload = {k: v - up0[k] for k, v in self.kernel.uploads.items()}
+            upload["full_tables"] = (
+                list(self.kernel.last_full_tables)
+                if upload["full_uploads"] else []
+            )
             t_render = time.perf_counter()
             render_cache = None
             if corpus.data_gen >= 0 and trace is None:
@@ -608,6 +614,9 @@ class TorchDriver(RegoDriver):
                 "render_errors": self._render_errors,
                 "hot_redispatches": self._hot_redispatches,
                 "phase_seconds": phases,
+                # device table uploads of this query: whole padded tables
+                # vs new vocab rows (parallel/fused.py _tables_device)
+                "upload": upload,
             }
             if trace is not None:
                 trace.append(

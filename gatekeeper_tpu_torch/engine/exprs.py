@@ -11,8 +11,8 @@ through the functions of `xp`. Spaces (array shapes) are:
 
 Nodes are pure and hash-consed per evaluation via an id-keyed memo, so
 shared subexpressions evaluate once. EGroup (the regroup of token values
-onto an array axis) runs through the hand-written kernel in
-kernels/ops.py on CUDA tensors.
+onto an array axis) and EGatherElem (its inverse) run through the
+hand-written kernels in kernels/ops.py on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -573,18 +573,14 @@ class EGatherElem(Expr):
         self.space = ("tok",)
 
     def _emit(self, ctx):
-        v = self.elem.emit(ctx)
-        if self.elem.space == ("g0",):
-            idx = ctx.tok["idx0"]
-            g = ctx.g0
-        else:
-            i0 = ctx.tok["idx0"]
-            i1 = ctx.tok["idx1"]
-            idx = xp.where((i0 >= 0) & (i1 >= 0), i0 * ctx.g1 + i1, -1)
-            g = ctx.g0 * ctx.g1
-        safe = xp.clip(idx, 0, g - 1)
-        vals = xp.take_along_axis(v, safe, 1)
-        return xp.where((idx >= 0) & (idx < g), vals, self.default)
+        from ..kernels import ops
+
+        # one gather per token (kernels/ops.py gather_elem), with JAX's
+        # flat g01 index and clamp
+        return ops.gather_elem(
+            self.elem.emit(ctx), ctx.tok["idx0"], ctx.tok["idx1"],
+            self.elem.space[0], ctx.g0, ctx.g1, self.default,
+        )
 
 
 @dataclass(eq=False)

@@ -1,6 +1,10 @@
 # Copied from gatekeeper_tpu/engine/symbolic.py; only imports and the edits noted in this header differ.
 # Edit: EMap lambdas emit through engine/xp.py (torch) instead of a
 # numpy-like module: `.astype(np.int32)` becomes `xp.astype(v, xp.int32)`.
+# Fix: `_tableize_function` refuses a helper that returns a composite
+# literal (`_fn_result_scalar`). The source tableizes host-filesystem's
+# `path_array` into a numeric table that is undefined at every path, so
+# its compiled program flags hostPath volumes that the interpreter allows.
 """Rego-subset → vectorized program compiler (symbolic partial evaluation).
 
 Compiles ConstraintTemplate `violation` rules into Expr DAGs over the
@@ -2140,6 +2144,8 @@ class Compiler:
             return None
         if not self._fn_arg_scalar(name, sym_idx=sym_idx):
             return None
+        if not self._fn_result_scalar(name):
+            return None
         oracle = self.cenv.oracle_fn
         ns = self.cenv.oracle_ns
         reads_params = self._fn_reads_params(name, set())
@@ -2189,6 +2195,17 @@ class Compiler:
         num = EStrTable(tname, ids, default=0.0)
         dfn = e_and(base_def, EStrTable(tname + "!def", ids, default=False))
         return [(SDerived(num=num, defined=dfn), st)]
+
+    def _fn_result_scalar(self, name: str) -> bool:
+        """False if some rule of the function returns a composite literal
+        (host-filesystem's `path_array("/") = []`): such a function
+        returns arrays, sets or objects, which a numeric table cannot
+        hold, so the caller's own call tableizes instead."""
+        composite = (A.ArrayTerm, A.ObjectTerm, A.SetTerm, A.Comprehension)
+        return not any(
+            isinstance(rule.head.value, composite)
+            for rule in self.rules.get(name, [])
+        )
 
     def _fn_arg_scalar(self, name: str, sym_idx: int = 0) -> bool:
         """True if the function never walks into its SYMBOLIC formal

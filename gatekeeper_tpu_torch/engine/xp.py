@@ -52,10 +52,6 @@ def repeat(v, n: int, dim: int):
     return torch.repeat_interleave(v, n, dim=dim)
 
 
-def take_along_axis(v, idx, dim: int):
-    return torch.gather(v, dim, idx.long())
-
-
 def take(tab, idx):
     """Row gather `tab[idx]` with an integer index tensor of any width."""
     return tab[idx.long()]

@@ -1,0 +1,166 @@
+# Copied from gatekeeper_tpu/faults/injection.py; only these edits differ.
+# Edit: arming from GATEKEEPER_TPU_FAULTS (configure_from_env), the
+# clock-jump skew(), device_point and FaultRegistry.snapshot are left
+# out; points are armed through FAULTS.arm.
+"""Deterministic fault-injection registry.
+
+The admission plane concentrates all risk in one device dispatch: a
+failure envelope that is only ever exercised in production is not a
+failure envelope, it is a surprise. This registry gives every
+interesting failure surface a NAMED fault point threaded into the
+production code path itself (`fire("driver.device_dispatch")` sits
+inside `TpuDriver._need_pairs`, not in a test double), so the chaos
+suite and `bench_webhook.py --chaos` drive the REAL degradation ladder
+— fused TPU → host oracle → fail-open verdict — end to end.
+
+Semantics (arm / trigger / fire):
+  * `arm(point, mode, ...)` registers a fault spec for a point;
+  * every pass through the point is a HIT; the spec triggers only
+    after `after` hits have been skipped (deterministic ordering, no
+    randomness — chaos runs must be replayable);
+  * a triggered spec FIRES at most `count` times (-1 = forever):
+    mode "error" raises `FaultError`, mode "hang" sleeps `delay_s`
+    then continues (a stall, not a crash); "clock_jump" is accepted
+    and never raises.
+
+Activation: nothing is armed by default, and `fire()` is a single
+boolean check when the registry is empty. Tests and chaos drivers arm
+points with `FAULTS.arm(point, mode, ...)`.
+
+The fault-point catalog lives in docs/robustness.md.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+MODES = ("error", "hang", "clock_jump")
+
+
+class FaultError(RuntimeError):
+    """The injected failure. Deliberately a plain RuntimeError subclass:
+    production code must survive it via the SAME handling it gives real
+    faults, never by special-casing injection."""
+
+    def __init__(self, point: str, message: str = ""):
+        super().__init__(message or f"injected fault at {point}")
+        self.point = point
+
+
+@dataclass
+class FaultSpec:
+    """One armed fault point."""
+
+    point: str
+    mode: str = "error"
+    count: int = -1  # fires at most `count` times; -1 = forever
+    after: int = 0  # skip the first `after` hits before triggering
+    delay_s: float = 0.05  # hang sleep / clock_jump offset (seconds)
+    message: str = ""
+    hits: int = field(default=0)  # passes through the point
+    fired: int = field(default=0)  # times the fault actually fired
+
+
+class FaultRegistry:
+    """Thread-safe arm/trigger/fire registry (module-global `FAULTS` is
+    the instance every production fault point consults)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._specs: Dict[str, FaultSpec] = {}
+        # fast-path flag: fire() must cost one attribute read when
+        # nothing is armed (the tier-1 / steady-state case)
+        self._active = False
+
+    # -- arming --------------------------------------------------------------
+
+    def arm(
+        self,
+        point: str,
+        mode: str = "error",
+        count: int = -1,
+        after: int = 0,
+        delay_s: float = 0.05,
+        message: str = "",
+    ) -> FaultSpec:
+        if mode not in MODES:
+            raise ValueError(f"unknown fault mode {mode!r} (want {MODES})")
+        spec = FaultSpec(
+            point=point, mode=mode, count=count, after=after,
+            delay_s=delay_s, message=message,
+        )
+        with self._lock:
+            self._specs[point] = spec
+            self._active = True
+        return spec
+
+    def disarm(self, point: Optional[str] = None) -> None:
+        """Disarm one point (or every point when None). Hit/fire counts
+        die with the spec — read them via `spec()` before disarming."""
+        with self._lock:
+            if point is None:
+                self._specs.clear()
+            else:
+                self._specs.pop(point, None)
+            self._active = bool(self._specs)
+
+    def reset(self) -> None:
+        self.disarm(None)
+
+    # -- introspection -------------------------------------------------------
+
+    def spec(self, point: str) -> Optional[FaultSpec]:
+        with self._lock:
+            return self._specs.get(point)
+
+    def hits(self, point: str) -> int:
+        with self._lock:
+            s = self._specs.get(point)
+            return s.hits if s is not None else 0
+
+    def fired(self, point: str) -> int:
+        with self._lock:
+            s = self._specs.get(point)
+            return s.fired if s is not None else 0
+
+    def active(self) -> bool:
+        return self._active
+
+    # -- the fault point ----------------------------------------------------
+
+    def fire(self, point: str) -> None:
+        """Called at a production fault point. No-op unless the point is
+        armed and its trigger condition holds; then raises (error),
+        stalls (hang), or no-ops (clock_jump — see `skew`)."""
+        if not self._active:
+            return
+        with self._lock:
+            spec = self._specs.get(point)
+            if spec is None:
+                return
+            spec.hits += 1
+            if spec.hits <= spec.after:
+                return
+            if spec.count >= 0 and spec.fired >= spec.count:
+                return
+            spec.fired += 1
+            mode, delay_s, message = spec.mode, spec.delay_s, spec.message
+        if mode == "hang":
+            # a stall, not a crash: the caller proceeds afterwards (the
+            # deadline/timeout machinery is what must save the request)
+            time.sleep(delay_s)
+            return
+        if mode == "error":
+            raise FaultError(point, message)
+        # clock_jump: consulted via skew(), never raises at the point
+
+
+# the registry every production fault point consults
+FAULTS = FaultRegistry()
+
+
+def fire(point: str) -> None:
+    FAULTS.fire(point)

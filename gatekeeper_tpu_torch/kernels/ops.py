@@ -1,4 +1,4 @@
-"""The four hand-written CUDA kernels of the fused violation path, each
+"""The six hand-written CUDA kernels of the fused violation path, each
 beside its plain torch version.
 
 Every wrapper takes the plain version for tensors that lie on the CPU (the
@@ -12,13 +12,17 @@ count), so a run can show that its main path went through the kernels.
     K2 slab_gather   <- gatekeeper_tpu/parallel/sharding.py:771 (two_level)
     K3 egroup        <- gatekeeper_tpu/engine/exprs.py:510 (EGroup._emit)
     K4 need_tail     <- gatekeeper_tpu/parallel/sharding.py:852-872, 677-708
+    K5 flush_deltas  <- gatekeeper_tpu/parallel/sharding.py:389-424
+    K6 gather_elem   <- gatekeeper_tpu/engine/exprs.py:564-597 (EGatherElem)
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional
+import struct
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..engine.matchspec import (
@@ -39,6 +43,8 @@ LAUNCHES: Dict[str, int] = {
     "slab_gather": 0,
     "egroup": 0,
     "need_tail": 0,
+    "flush_deltas": 0,
+    "gather_elem": 0,
 }
 
 
@@ -531,4 +537,178 @@ def need_tail(match_u, spec_map, viol, compiled, row_fb, n_valid: int,
     )
     _check(rc, "need_tail")
     LAUNCHES["need_tail"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5 flush_deltas
+
+
+def _host_delta(delta, buf: torch.Tensor, fill: int) -> torch.Tensor:
+    """A delta as a contiguous CPU tensor of the buffer's dtype (the cast
+    happens on the host, as the JAX version's `.astype(b.dtype)` does),
+    checked to fit the buffer at rows [fill, fill + len)."""
+    if isinstance(delta, torch.Tensor):
+        d = delta.detach().to("cpu")
+    else:
+        d = torch.from_numpy(np.ascontiguousarray(np.asarray(delta)))
+    d = d.to(buf.dtype).contiguous()
+    if d.dim() != buf.dim() or tuple(d.shape[1:]) != tuple(buf.shape[1:]):
+        raise ValueError(
+            f"flush_deltas: delta {tuple(d.shape)} does not fit buffer "
+            f"{tuple(buf.shape)}"
+        )
+    if fill < 0 or fill + d.shape[0] > buf.shape[0]:
+        raise ValueError(
+            f"flush_deltas: rows [{fill}, {fill + d.shape[0]}) outside "
+            f"a buffer of {buf.shape[0]}"
+        )
+    return d
+
+
+def flush_deltas_plain(bufs: Sequence[torch.Tensor], fills: Sequence[int],
+                       deltas: Sequence[Any]) -> List[torch.Tensor]:
+    """Write each delta [d, ...] into its resident buffer at rows
+    [fill, fill + d), in place: one `copy_` per table. -> the buffers."""
+    for buf, fill, delta in zip(bufs, fills, deltas):
+        d = _host_delta(delta, buf, fill)
+        buf[fill:fill + d.shape[0]].copy_(d)
+    return list(bufs)
+
+
+# a segment of K5 moves at most this many bytes, so a large delta spreads
+# over several blocks; a multiple of 16 keeps both ends' alignment
+SEG_BYTES = 1 << 16
+_SEG_HEADER = 24  # {dst pointer, src offset, bytes} as three int64
+
+
+def delta_segments(bufs, fills, deltas):
+    """-> (segments [(dst address, nbytes, delta index, byte offset in the
+    delta)], staging offset of each delta, header bytes, staging bytes).
+    Each delta lands at a staging offset congruent to its destination
+    modulo 16, so K5's 16-byte moves are aligned at both ends; a delta
+    longer than SEG_BYTES is cut into several segments."""
+    dsts = [
+        b.data_ptr() + f * (b.numel() // max(b.shape[0], 1)) * b.element_size()
+        for b, f in zip(bufs, fills)
+    ]
+    sizes = [d.numel() * d.element_size() for d in deltas]
+    pieces = [
+        (dst + off, min(SEG_BYTES, n - off), i, off)
+        for i, (dst, n) in enumerate(zip(dsts, sizes))
+        for off in range(0, n, SEG_BYTES)
+    ]
+    header = -(-len(pieces) * _SEG_HEADER // 16) * 16
+    pos = header
+    starts = []
+    for dst, n in zip(dsts, sizes):
+        pos += (dst - pos) % 16
+        starts.append(pos)
+        pos += n
+    return pieces, starts, header, pos
+
+
+def flush_deltas(bufs: Sequence[torch.Tensor], fills: Sequence[int],
+                 deltas: Sequence[Any]) -> List[torch.Tensor]:
+    """K5 wrapper: see flush_deltas_plain. On CUDA buffers every delta is
+    packed into one pinned staging buffer behind a segment table, shipped
+    with ONE host->device copy, and written by ONE launch of K5."""
+    if not bufs:
+        return []
+    if not _on_cuda(*bufs):
+        return flush_deltas_plain(bufs, fills, deltas)
+    for buf in bufs:
+        if not buf.is_contiguous() or buf.dtype not in _ELEM_BYTES:
+            raise ValueError(
+                f"flush_deltas: buffer {buf.dtype} {tuple(buf.shape)} not "
+                "contiguous bool/int32/float32")
+    ds = [_host_delta(d, b, f) for b, f, d in zip(bufs, fills, deltas)]
+    pieces, starts, _, total = delta_segments(bufs, fills, ds)
+    if not pieces:
+        return list(bufs)
+    staging = torch.empty((total,), dtype=torch.uint8, pin_memory=True)
+    table = torch.tensor(
+        [[dst, starts[i] + off, n] for dst, n, i, off in pieces],
+        dtype=torch.int64,
+    )
+    staging[: table.numel() * 8].copy_(table.view(-1).view(torch.uint8))
+    for d, pos in zip(ds, starts):
+        raw = d.view(-1).view(torch.uint8)
+        staging[pos:pos + raw.numel()].copy_(raw)
+    dev = staging.to(bufs[0].device, non_blocking=True)
+    from .build import library
+
+    lib = library("delta")
+    _check(lib.gk_flush_deltas(_ptr(dev), len(pieces), _stream()), "flush_deltas")
+    LAUNCHES["flush_deltas"] += 1
+    return list(bufs)
+
+
+# ---------------------------------------------------------------------------
+# K6 gather_elem
+
+
+def elem_index(idx0, idx1, axis: str, g0: int, g1: int):
+    """JAX's flat element index: idx0 on g0; idx0 * g1 + idx1 on g01 when
+    both are set (an idx1 >= g1 runs on into the next element), else -1."""
+    if axis == "g0":
+        return idx0, g0
+    if axis != "g01":
+        raise ValueError(f"gather_elem: axis {axis!r}")
+    idx = torch.where((idx0 >= 0) & (idx1 >= 0), idx0 * g1 + idx1, -1)
+    return idx, g0 * g1
+
+
+def _gather_type(v: torch.Tensor, default: Any) -> torch.dtype:
+    rt = torch.result_type(v, default)
+    return {torch.int64: torch.int32, torch.float64: torch.float32}.get(rt, rt)
+
+
+def gather_elem_plain(v, idx0, idx1, axis: str, g0: int, g1: int,
+                      default: Any):
+    """[N, L]: each token's value of its own array element, v[n, idx]
+    from v [N, G], where 0 <= idx < G; `default` elsewhere. The torch
+    form of take_along_axis(v, clip(idx, 0, G - 1)) under a where."""
+    idx, g = elem_index(idx0, idx1, axis, g0, g1)
+    safe = torch.clamp(idx, 0, g - 1)
+    vals = torch.gather(v, 1, safe.long())
+    out = torch.where((idx >= 0) & (idx < g), vals, default)
+    return out.to(_gather_type(v, default))
+
+
+def gather_elem(v, idx0, idx1, axis: str, g0: int, g1: int,
+                default: Any):
+    """K6 wrapper: see gather_elem_plain."""
+    if not _on_cuda(v, idx0, idx1):
+        return gather_elem_plain(v, idx0, idx1, axis, g0, g1, default)
+    idx0 = _need(idx0, torch.int32, 2, "idx0")
+    idx1 = _need(idx1, torch.int32, 2, "idx1")
+    eb = _ELEM_BYTES.get(v.dtype)
+    g = g0 if axis == "g0" else g0 * g1
+    if axis not in ("g0", "g01") or eb is None or v.dim() != 2:
+        raise ValueError(f"gather_elem: {axis} {v.dtype} {tuple(v.shape)}")
+    if v.shape != (idx0.shape[0], g) or idx1.shape != idx0.shape:
+        raise ValueError(
+            f"gather_elem: v {tuple(v.shape)} / idx {tuple(idx0.shape)} / g {g}"
+        )
+    if _gather_type(v, default) != v.dtype:
+        raise ValueError(f"gather_elem: default {default!r} changes {v.dtype}")
+    v = v.contiguous()
+    if v.dtype == torch.float32:
+        bits = struct.unpack("<I", struct.pack("<f", float(default)))[0]
+    else:
+        bits = int(default) & 0xFFFFFFFF
+    n, l = idx0.shape
+    out = torch.empty((n, l), dtype=v.dtype, device=v.device)
+    if out.numel() == 0:
+        return out
+    from .build import library
+
+    lib = library("gather")
+    rc = lib.gk_gather_elem(
+        _ptr(v), g, _ptr(idx0), _ptr(idx1), 0 if axis == "g0" else 1,
+        int(g1), bits, _ptr(out), n * l, l, eb, _stream(),
+    )
+    _check(rc, "gather_elem")
+    LAUNCHES["gather_elem"] += 1
     return out

@@ -25,8 +25,14 @@ What differs from the JAX version, and why:
     [V, T] slab tables. XLA dropped unread slabs by dead-code elimination;
     eager torch eliminates nothing, and a full `pat_capture` slab at 32,768
     rows x L tokens x T columns x 4 bytes reaches gigabytes.
-  * The fused tables are restaged whole whenever the pattern/table
-    generation changes (the JAX version's vocab-delta upload is later work).
+  * Device tables stay resident, padded on the vocab axis to `pad_len`
+    rows, as in the JAX version: vocab growth inside the bucket ships only
+    the new rows of every table in one host->device copy and one launch of
+    K5 (`ops.flush_deltas`); a table's first upload, a bucket overflow, or
+    a change of its columns uploads it whole. A resident table is keyed by
+    its column identities, not only by its shape and dtype (the JAX test),
+    since the port stages only the policy's columns and a policy that
+    swaps one column for another of the same width must not reuse it.
 """
 
 from __future__ import annotations
@@ -46,6 +52,29 @@ from ..kernels import ops
 
 _VID_KINDS = ("vid_bool", "vid_i32", "vid_f32")
 _KIND_DTYPE = {"vid_bool": np.bool_, "vid_i32": np.int32, "vid_f32": np.float32}
+_NARROW = {np.dtype(np.int64): np.int32, np.dtype(np.float64): np.float32}
+
+# delta-upload granularity on the vocab axis: deltas pad to a multiple
+# of this many rows (gatekeeper_tpu/parallel/sharding.py _DELTA_ROWS)
+DELTA_ROWS = 512
+
+
+def pad_len(n: int) -> int:
+    """Padded vocab-axis capacity: the next power of two (at least 4096)
+    that leaves room for one full delta chunk."""
+    p = 4096
+    while p < n + DELTA_ROWS:
+        p *= 2
+    return p
+
+
+@dataclass
+class _Resident:
+    """A device table padded on its vocab axis (axis 0)."""
+
+    buf: torch.Tensor
+    fill: int  # vocab rows written
+    ident: Tuple  # (trailing shape, dtype, column identities)
 
 
 def _g01(g) -> Tuple[int, int]:
@@ -157,6 +186,14 @@ class FusedKernel:
         self.tables = tables
         self.device = torch.device(device)
         self._table_cache: Optional[Tuple[Tuple, Dict[str, torch.Tensor]]] = None
+        self._resident: Dict[str, _Resident] = {}
+        # cumulative upload counters: whole padded tables, and delta rows
+        # shipped through flush_deltas (one K5 launch per flush on CUDA)
+        self.uploads: Dict[str, int] = {
+            "full_uploads": 0, "full_bytes": 0, "delta_tables": 0,
+            "delta_rows": 0, "delta_bytes": 0, "delta_flushes": 0,
+        }
+        self.last_full_tables: List[str] = []  # of the latest restage
 
     # -- policy ---------------------------------------------------------------
 
@@ -239,8 +276,10 @@ class FusedKernel:
         """String tables [V] plus the fused transposed slab tables
         `<kind>!T` [V, T] holding only the policy's columns; the full
         pattern tables stay on the host, since every pattern node on the
-        device reads its slab column. Restaged whole on a pattern/table
-        generation change."""
+        device reads its slab column. Every table is resident and padded
+        on its vocab axis (`_stage_table`); after a pattern/table
+        generation change, all tables' new rows go to the device in one
+        flush_deltas call."""
         self.patterns.sync()
         self.tables.sync()
         key = (
@@ -250,29 +289,88 @@ class FusedKernel:
         )
         if self._table_cache is not None and self._table_cache[0] == key:
             return self._table_cache[1]
-        self._table_cache = None  # release the old tables first
+        self._table_cache = None
+        self.last_full_tables = []
         str_arrs = {k: np.asarray(v) for k, v in self.tables.arrays().items()}
-        pm = np.asarray(self.patterns.member)
-        pc = np.asarray(self.patterns.capture)
-        tabs = {}
-        for name, t in str_arrs.items():
-            tabs[name] = to_tensor(t, self.device)
-        for kind, src in (("pat_member", pm), ("pat_capture", pc)):
+        # name -> (host array, vocab axis first; column identities)
+        host: Dict[str, Tuple[np.ndarray, Tuple]] = {
+            name: (t, ()) for name, t in str_arrs.items()
+        }
+        for kind, src in (("pat_member", self.patterns.member),
+                          ("pat_capture", self.patterns.capture)):
             idx = policy.cols.get(kind)
             if idx:
-                tabs[kind + "!T"] = to_tensor(src[idx].T, self.device)
+                host[kind + "!T"] = (np.asarray(src)[idx].T, tuple(idx))
         for kind in _VID_KINDS:
             names = policy.cols.get(kind)
             if names:
-                tabs[kind + "!T"] = to_tensor(
+                host[kind + "!T"] = (
                     np.stack(
                         [str_arrs[n].astype(_KIND_DTYPE[kind]) for n in names],
                         axis=1,
                     ),
-                    self.device,
+                    tuple(names),
                 )
+        pending: List[Tuple[str, np.ndarray]] = []
+        for name, (a, cols) in host.items():
+            self._stage_table(name, a, cols, pending)
+        for stale in set(self._resident) - set(host):
+            del self._resident[stale]
+        if pending:
+            # every table's new rows in one call: one host->device copy
+            # and one K5 launch on CUDA
+            ops.flush_deltas(
+                [self._resident[n].buf for n, _ in pending],
+                [self._resident[n].fill for n, _ in pending],
+                [d for _, d in pending],
+            )
+            up = self.uploads
+            up["delta_flushes"] += 1
+            up["delta_tables"] += len(pending)
+            up["delta_rows"] += sum(d.shape[0] for _, d in pending)
+            up["delta_bytes"] += sum(
+                d.shape[0] * self._resident[n].buf[0].numel()
+                * self._resident[n].buf.element_size()
+                for n, d in pending
+            )
+            for n, d in pending:
+                self._resident[n].fill = host[n][0].shape[0]
+        tabs = {name: self._resident[name].buf for name in host}
         self._table_cache = (key, tabs)
         return tabs
+
+    def _stage_table(self, name: str, a: np.ndarray, cols: Tuple,
+                     pending: List[Tuple[str, np.ndarray]]) -> None:
+        """Keep table `name` resident: unchanged, extended by a delta of
+        its rows [fill, vlen) zero-padded to a multiple of DELTA_ROWS
+        (queued in `pending`), or uploaded whole and padded to
+        pad_len(vlen) on a first upload, a column or type change, or a
+        bucket overflow. Casts happen here, on the host."""
+        a = np.asarray(a)
+        if a.dtype in _NARROW:
+            a = a.astype(_NARROW[a.dtype])
+        vlen = a.shape[0]
+        ident = (a.shape[1:], a.dtype.str, cols)
+        ent = self._resident.get(name)
+        if ent is not None and ent.ident == ident and ent.fill <= vlen:
+            if ent.fill == vlen:
+                return
+            dl = vlen - ent.fill
+            dpad = -(-dl // DELTA_ROWS) * DELTA_ROWS
+            if ent.fill + dpad <= ent.buf.shape[0]:
+                delta = np.zeros((dpad,) + a.shape[1:], a.dtype)
+                delta[:dl] = a[ent.fill:]
+                pending.append((name, delta))
+                return
+        cap = pad_len(vlen)
+        padded = np.zeros((cap,) + a.shape[1:], a.dtype)
+        padded[:vlen] = a
+        self._resident.pop(name, None)  # release the old buffer first
+        buf = to_tensor(padded, self.device)
+        self._resident[name] = _Resident(buf, vlen, ident)
+        self.uploads["full_uploads"] += 1
+        self.uploads["full_bytes"] += padded.nbytes
+        self.last_full_tables.append(name)
 
     # -- corpus ---------------------------------------------------------------
 

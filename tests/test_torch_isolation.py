@@ -53,6 +53,47 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+AUDIT_PLANE = (
+    "gatekeeper_tpu_torch.audit",
+    "gatekeeper_tpu_torch.audit.manager",
+    "gatekeeper_tpu_torch.control",
+    "gatekeeper_tpu_torch.control.events",
+    "gatekeeper_tpu_torch.control.process",
+    "gatekeeper_tpu_torch.obs",
+    "gatekeeper_tpu_torch.obs.tracer",
+    "gatekeeper_tpu_torch.faults",
+    "gatekeeper_tpu_torch.faults.injection",
+    "gatekeeper_tpu_torch.logs",
+)
+
+
+def test_audit_plane_imports_with_jax_blocked():
+    """The audit controller's subpackages import, and a from-cache sweep
+    runs on the CPU, in an interpreter where importing jax or the JAX
+    package fails."""
+    assert set(AUDIT_PLANE) <= set(_modules())
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'jaxlib', 'gatekeeper_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {AUDIT_PLANE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from gatekeeper_tpu_torch.audit import AuditManager\n"
+        "from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver\n"
+        "c = chip_smoke.build_client(TorchDriver(device='cpu'), 30, 8)\n"
+        "r = AuditManager(c, chip_smoke.TARGET).audit()\n"
+        "print(r.total_violations)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) > 0
+
+
 def test_no_jax_import_statements():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PKG):
