@@ -8,7 +8,7 @@ Phases, one line each on stdout, in this order:
   card     the card's name and power limit (nvidia-smi);
   build    nvcc builds every kernel of the path from csrc/ into
            build/gatekeeper_tpu_torch/ (one nvcc per source, in parallel);
-  parity   2,000 pods x 50 constraints on TorchDriver("cuda"): 4 review
+  parity   1,000 pods x 50 constraints on TorchDriver("cuda"): 4 review
            batches of 64 identical to the port's own interpreter driver
            (RegoDriver);
   audit_parity  the audit controller on the same clients, 4 host-filesystem
@@ -34,8 +34,25 @@ Phases, one line each on stdout, in this order:
            sweep 2 must take the vocab-delta upload. Every kernel (K1-K6)
            must launch over the two sweeps, K5 in sweep 2; a sample of rows
            is held against the interpreter;
-  kernels  each kernel against its plain torch version on inputs the full
-           and audit_churn runs gave it (exact equality: every output is
+  inventory_parity  2,000 mixed-GVK rows (make_mixed: pods, Services,
+           Ingresses, Namespaces) x 50 constraints plus the two uniqueness
+           joins (UNIQUE_INGRESS_HOST_REGO, UNIQUE_SERVICE_SELECTOR_REGO):
+           whole audit() and review_many() result lists equal to the
+           interpreter driver's;
+  inventory  BASELINE config #5 at full width (100,000 mixed-GVK rows x
+           500 constraints, the two joins among them): one cold audit sweep
+           and 8 review batches of 256, some reusing a host or selector the
+           inventory holds. The uniqueness violations must equal a plain
+           grouping of the corpus, every uniqueness render must go through
+           the prune index, and K1-K4 must launch;
+  full_output  the full-output audit step (FusedKernel.run: match, counts,
+           totals; unchunked) over the inventory client: K7 equal to its
+           plain version, counts to the per-program evaluator, match to K1's
+           plain version, each compiled constraint without row features
+           totalling its need pairs of the sweep (K4); entry()'s step once;
+           the step's device time split into K1, K7 and program bodies;
+  kernels  each kernel against its plain torch version on inputs the main
+           paths gave it (exact equality: every output is
            bool or int, K5's buffers compared byte for byte), with the
            kernel's device time (torch.profiler), the wrapper's wall time
            per call, the plain version's and, where PyTorch's own calls
@@ -46,7 +63,8 @@ Phases, one line each on stdout, in this order:
            namespace, scope and selector clauses over many spec rows,
            EGroup sum/max, int32/float32 values, g1/g01 axes, overlay
            slabs, a hot-row window smaller than the hot rows, K6 on g0 and
-           with idx1 past g1, K5 at unaligned fills across segments).
+           with idx1 past g1, K5 at unaligned fills across segments, K7 at
+           ragged widths with -1 rows and a short n_valid).
 
 The line before the last is the kernel table as one JSON object; the last
 line is {"ok": true, "device": {...}}. Any failing phase raises, and the
@@ -107,6 +125,8 @@ KERNELS = {
                      "gatekeeper_tpu/parallel/sharding.py:389"),
     "gather_elem": ("gatekeeper_tpu_torch/kernels/csrc/gather.cu",
                     "gatekeeper_tpu/engine/exprs.py:564"),
+    "full_totals": ("gatekeeper_tpu_torch/kernels/csrc/totals.cu",
+                    "gatekeeper_tpu/parallel/sharding.py:1066"),
 }
 
 
@@ -118,12 +138,16 @@ KERNEL_FUNCS = {
     "need_tail": ("need_rows_kernel", "compact_kernel", "pack_kernel"),
     "flush_deltas": ("delta_kernel",),
     "gather_elem": ("gather_elem_kernel",),
+    "full_totals": ("totals_kernel",),
 }
 
 # the kernels each counted path must launch
 PATH_KERNELS = {
     "full": ("match_matrix", "slab_gather", "egroup", "need_tail"),
-    "audit_churn": tuple(KERNELS),
+    "audit_churn": ("match_matrix", "slab_gather", "egroup", "need_tail",
+                    "flush_deltas", "gather_elem"),
+    "inventory": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "full_output": ("match_matrix", "slab_gather", "egroup", "full_totals"),
 }
 
 # A two-array join in the shape of gatekeeper-library's
@@ -235,6 +259,113 @@ JOIN_PARAMS = [
 ]
 
 
+# Inventory joins in the shape of gatekeeper-library's public
+# general/uniqueingresshost and general/uniqueserviceselector templates:
+# an Ingress host, or a Service's flattened selector, shared with another
+# synced object of the namespace inventory violates. The compiler screens
+# both; uniqueingresshost gets an "invdup" row feature and a path-form
+# prune plan (spec.rules[_].host), uniqueserviceselector a fn-form one
+# (flatten_selector).
+UNIQUE_INGRESS_HOST_REGO = """package k8suniqueingresshost
+
+identical(obj, review) {
+  obj.metadata.namespace == review.object.metadata.namespace
+  obj.metadata.name == review.object.metadata.name
+}
+
+violation[{"msg": msg}] {
+  input.review.kind.kind == "Ingress"
+  re_match("^(extensions|networking.k8s.io)$", input.review.kind.group)
+  host := input.review.object.spec.rules[_].host
+  other := data.inventory.namespace[_][otherapiversion]["Ingress"][name]
+  re_match("^(extensions|networking.k8s.io)/.+$", otherapiversion)
+  other.spec.rules[_].host == host
+  not identical(other, input.review)
+  msg := sprintf("ingress host conflicts with an existing ingress <%v>", [host])
+}
+"""
+
+UNIQUE_SERVICE_SELECTOR_REGO = """package k8suniqueserviceselector
+
+make_apiversion(kind) = apiVersion {
+  g := kind.group
+  v := kind.version
+  g != ""
+  apiVersion = sprintf("%v/%v", [g, v])
+}
+
+make_apiversion(kind) = apiVersion {
+  kind.group == ""
+  apiVersion = kind.version
+}
+
+identical(obj, review) {
+  obj.metadata.namespace == review.namespace
+  obj.metadata.name == review.name
+  obj.kind == review.kind.kind
+  obj.apiVersion == make_apiversion(review.kind)
+}
+
+flatten_selector(obj) = flattened {
+  selectors := [s | s = concat(":", [key, val]); val = obj.spec.selector[key]]
+  flattened := concat(",", sort(selectors))
+}
+
+violation[{"msg": msg}] {
+  input.review.kind.kind == "Service"
+  input.review.kind.version == "v1"
+  input.review.kind.group == ""
+  input_selector := flatten_selector(input.review.object)
+  other := data.inventory.namespace[namespace][_][_][name]
+  not identical(other, input.review)
+  other_selector := flatten_selector(other)
+  input_selector == other_selector
+  msg := sprintf("same selector as service <%v> in namespace <%v>", [name, namespace])
+}
+"""
+
+# kind -> (Rego, the groups and kind its constraint matches)
+UNIQUENESS = {
+    "K8sUniqueIngressHost": (
+        UNIQUE_INGRESS_HOST_REGO, (("extensions", "networking.k8s.io"), "Ingress"),
+    ),
+    "K8sUniqueServiceSelector": (
+        UNIQUE_SERVICE_SELECTOR_REGO, (("",), "Service"),
+    ),
+}
+
+
+def uniqueness_templates():
+    return [
+        {
+            "apiVersion": "templates.gatekeeper.sh/v1beta1",
+            "kind": "ConstraintTemplate",
+            "metadata": {"name": kind.lower()},
+            "spec": {
+                "crd": {"spec": {"names": {"kind": kind}}},
+                "targets": [{"target": TARGET, "rego": rego}],
+            },
+        }
+        for kind, (rego, _) in UNIQUENESS.items()
+    ]
+
+
+def uniqueness_constraints():
+    """One constraint per uniqueness template: such policies are deployed
+    once per cluster."""
+    return [
+        {
+            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": kind,
+            "metadata": {"name": f"unique-{kind[9:].lower()}"},
+            "spec": {"match": {"kinds": [
+                {"apiGroups": list(groups), "kinds": [k]}
+            ]}},
+        }
+        for kind, (_, (groups, k)) in UNIQUENESS.items()
+    ]
+
+
 def template_docs():
     """The 8 in-repo ConstraintTemplates (deploy/policies)."""
     import yaml
@@ -334,6 +465,103 @@ def review_batch(seed: int, size: int):
             pod["spec"]["containers"][0]["image"] = f"docker.io/novel{seed}x{j}"
         out.append(AugmentedUnstructured(pod))
     return out
+
+
+def make_mixed(i: int):
+    """A mixed-GVK corpus row in the shape of bench.make_mixed: about 1%
+    Services, 2% Ingresses (networking.k8s.io/v1beta1), 1% Namespaces,
+    and pods of 1-16 containers (make_pod) for the rest. Join keys are
+    mostly unique: the Service of every 30th block of 100 rows repeats the
+    previous block's selector, and the Ingresses of every 25th block
+    repeat the previous block's hosts. (bench.make_mixed shifts the key by
+    30 or 50 blocks, which lands on another shifted row, so its corpus
+    holds no duplicate at all.)"""
+    r, blk = i % 100, i // 100
+    if r == 17:
+        sel_id = i - 100 if blk % 30 == 1 else i
+        return {
+            "apiVersion": "v1",
+            "kind": "Service",
+            "metadata": {"name": f"svc{i}", "namespace": f"ns{i % 23}"},
+            "spec": {"selector": {"app": f"app{sel_id}"}},
+        }
+    if r in (18, 57):
+        host_id = i - 100 if blk % 25 == 1 else i
+        return {
+            "apiVersion": "networking.k8s.io/v1beta1",
+            "kind": "Ingress",
+            "metadata": {"name": f"ing{i}", "namespace": f"ns{i % 23}"},
+            "spec": {"rules": [{"host": f"h{host_id}.example.com"}]},
+        }
+    if r == 19:
+        return {
+            "apiVersion": "v1",
+            "kind": "Namespace",
+            "metadata": {"name": f"extra-ns{i}", "labels": {"env": "x"}},
+        }
+    return make_pod(i)
+
+
+def mixed_review_batch(seed: int, size: int, n_corpus: int):
+    """An admission micro-batch over a make_mixed corpus of n_corpus rows:
+    new pods, and every 8th review a new Service or Ingress, half of them
+    reusing a selector or host that the corpus holds, so the join screen
+    of the review path fires."""
+    from gatekeeper_tpu_torch.constraint import AugmentedUnstructured
+
+    out = []
+    for j in range(size):
+        i = 1_000_000 + seed * size + j
+        if j % 8 == 0:
+            held = (j // 8) % 2 == 0
+            src = (j * 997 + seed * 131) % max(n_corpus // 100, 1) * 100
+            if (j // 16) % 2 == 0:
+                obj = make_mixed(src + 17 if held else i - i % 100 + 17)
+            else:
+                obj = make_mixed(src + 18 if held else i - i % 100 + 18)
+            obj["metadata"]["name"] = f"admit-{seed}-{j}"
+        else:
+            obj = make_pod(i, name=f"admit-{seed}-{j}")
+            obj["metadata"]["labels"]["release"] = f"r{seed}-{j}"
+        out.append(AugmentedUnstructured(obj))
+    return out
+
+
+def uniqueness_keys(o):
+    """-> (uniqueness kind, the object's join keys: Ingress hosts or the
+    Service's flattened selector), or (None, ())."""
+    if o["kind"] == "Ingress":
+        rules = o["spec"].get("rules") or []
+        if isinstance(rules, dict):  # Rego's rules[_] takes the values
+            rules = list(rules.values())
+        return "K8sUniqueIngressHost", {r.get("host") for r in rules}
+    if o["kind"] == "Service":
+        sel = o["spec"].get("selector") or {}
+        return "K8sUniqueServiceSelector", {
+            ",".join(sorted(f"{k}:{v}" for k, v in sel.items()))
+        }
+    return None, ()
+
+
+def uniqueness_index(objs):
+    """{uniqueness kind: {join key: the (namespace, name) of its holders}}."""
+    index = {kind: {} for kind in UNIQUENESS}
+    for o in objs:
+        kind, keys = uniqueness_keys(o)
+        for k in keys:
+            index[kind].setdefault(k, set()).add(
+                (o["metadata"].get("namespace"), o["metadata"]["name"]))
+    return index
+
+
+def uniqueness_groups(objs):
+    """Plain-Python grouping of a corpus: {uniqueness kind: the (namespace,
+    name) of every object in a host or flattened-selector group of two or
+    more members}."""
+    return {
+        kind: set().union(*[m for m in g.values() if len(m) >= 2])
+        for kind, g in uniqueness_index(objs).items()
+    }
 
 
 def hostfs_template():
@@ -457,35 +685,57 @@ def _device_time_us(evt) -> float:
     return float(t if t is not None else evt.self_cuda_time_total)
 
 
+HEAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+def _window_head():
+    """Open a profiler window with throwaway launches: torch.profiler on
+    the H100 drops the first kernel records of a window (up to about ten
+    seen), and these absorb the loss. Their time is left out of every
+    sum (HEAD_KERNEL)."""
+    import torch
+
+    for _ in range(32):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def _kernel_name(evt) -> str:
+    parts = (evt.key or "").split("<")[0].split("(")[0].split()
+    return parts[-1] if parts else ""
+
+
 def _device_ms(fn, kernels=None, reps: int = 10) -> float:
     """Device ms per call (torch.profiler, CUDA activity): the summed
-    execution time of the kernels whose names start with one of
-    `kernels`, or of all device activity when `kernels` is None. Host
-    issue time does not enter it."""
+    execution time of the kernels named in `kernels` (each launched once
+    per call; a profile missing one of their records is taken again), or
+    of all device activity when `kernels` is None. Host issue time does
+    not enter it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # a profile that records no device activity at all happened once
-    # after a long run; take the measurement again before giving up
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _window_head()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         us = 0.0
-        seen = []
+        seen = {}
         for e in prof.key_averages():
-            parts = (e.key or "").split("<")[0].split("(")[0].split()
-            name = parts[-1] if parts else ""
-            seen.append((name, _device_time_us(e)))
+            name = _kernel_name(e)
+            if name == HEAD_KERNEL:
+                continue
+            seen[name] = seen.get(name, 0) + e.count
             if kernels is None or name in kernels:
                 us += _device_time_us(e)
-        if us > 0.0:
+        short = [k for k in kernels or () if 0 < seen.get(k, 0) < reps]
+        if us > 0.0 and not short:
             return us / 1e3 / reps
     raise AssertionError(
-        f"profiler saw no device time for {kernels}: {seen[:12]}")
+        f"profiler recorded {seen} for {kernels} over {reps} calls")
 
 
 def _nbytes(*ts) -> int:
@@ -519,7 +769,7 @@ def phase_build():
                       "built": sorted(logs)}), flush=True)
 
 
-def phase_parity(device: str, n_pods: int = 2000, n_constraints: int = 50,
+def phase_parity(device: str, n_pods: int = 1000, n_constraints: int = 50,
                  n_batches: int = 4, batch: int = 64):
     """Review batches on TorchDriver against the interpreter driver. The
     audit of the same corpus is compared in phase_audit_parity, whole
@@ -609,6 +859,8 @@ def _variant(name, args, kw):
         return (args[4], args[7], str(args[3].dtype))
     if name == "need_tail":
         return (tuple(args[2].shape), args[6])
+    if name == "full_totals":
+        return (tuple(args[0].shape), args[1] is not None)
     return tuple(args[1]["group_id"].shape)
 
 
@@ -709,7 +961,7 @@ def _audit_managers(clients, cluster=None, now=None):
     ]
 
 
-def phase_audit_parity(port, ref, drv, n_pods: int = 2000, n_join: int = 4,
+def phase_audit_parity(port, ref, drv, n_pods: int = 1000, n_join: int = 4,
                        churn: float = 0.02):
     """AuditManager over the parity phase's TorchDriver client against
     AuditManager over its interpreter client, after adding n_join
@@ -904,6 +1156,372 @@ def phase_audit_churn(client, drv, rec, n_constraints: int = 500,
     return launches
 
 
+def build_mixed_client(driver, n_rows: int, n_constraints: int):
+    """BASELINE config #5 as the repo defines it: n_rows make_mixed rows
+    under n_constraints constraints, the last two the uniqueness joins
+    (deployed once per cluster) and the rest the in-repo templates."""
+    from gatekeeper_tpu_torch.constraint import Backend, K8sValidationTarget
+
+    client = Backend(driver).new_client(K8sValidationTarget())
+    for t in template_docs() + uniqueness_templates():
+        client.add_template(t)
+    for c in constraint_docs(n_constraints - 2) + uniqueness_constraints():
+        client.add_constraint(c)
+    for i in range(n_rows):
+        client.add_data(make_mixed(i))
+    return client
+
+
+def _obj_key(r):
+    obj = r.review["object"] if isinstance(r.review, dict) else {}
+    meta = obj.get("metadata", {})
+    return meta.get("namespace"), meta.get("name")
+
+
+def _flagged(results):
+    """{uniqueness kind: the (namespace, name) of every object a result
+    of that kind names}."""
+    out = {kind: set() for kind in UNIQUENESS}
+    for r in results:
+        if r.constraint["kind"] in out:
+            out[r.constraint["kind"]].add(_obj_key(r))
+    return out
+
+
+class RenderWatch:
+    """Counts the interpreter renders of uniqueness constraints that got
+    the whole inventory (none may: each goes through the prune index)."""
+
+    def __init__(self, drv):
+        self.drv = drv
+        self.full = 0
+        self.pruned = 0
+        self.inside = False
+        self.orig = (drv._render_pruned, drv._eval_template)
+
+    def install(self):
+        render_pruned, eval_template = self.orig
+
+        def pruned(*a, **kw):
+            self.inside = True
+            try:
+                self.pruned += 1
+                return render_pruned(*a, **kw)
+            finally:
+                self.inside = False
+
+        def evaluate(target, constraint, *a, **kw):
+            if constraint.get("kind") in UNIQUENESS and not self.inside:
+                self.full += 1
+            return eval_template(target, constraint, *a, **kw)
+
+        self.drv._render_pruned = pruned
+        self.drv._eval_template = evaluate
+
+    def remove(self):
+        del self.drv._render_pruned
+        del self.drv._eval_template
+
+
+def phase_inventory_parity(device: str, n_rows: int = 2000,
+                           n_constraints: int = 50, n_batches: int = 4,
+                           batch: int = 64):
+    """make_mixed rows under n_constraints in-repo constraints plus the
+    two uniqueness joins, on TorchDriver and on the interpreter driver:
+    whole audit() and review_many() result lists must be equal."""
+    from gatekeeper_tpu_torch.constraint import RegoDriver
+    from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver
+
+    t0 = time.perf_counter()
+    drv = TorchDriver(device)
+    port = build_mixed_client(drv, n_rows, n_constraints + 2)
+    ref = build_mixed_client(RegoDriver(), n_rows, n_constraints + 2)
+    got = _keys(port.audit().by_target[TARGET].results)
+    audit_stats = dict(drv.stats)
+    want = _keys(ref.audit().by_target[TARGET].results)
+    if got != want:
+        raise AssertionError("inventory parity: audit results differ")
+    n_review = 0
+    pruned = audit_stats["pruned_renders"]
+    for b in range(n_batches):
+        objs = mixed_review_batch(900 + b, batch, n_rows)
+        g = [_keys(r.by_target[TARGET].results) for r in port.review_many(objs)]
+        pruned += drv.stats["pruned_renders"]
+        w = [_keys(r.by_target[TARGET].results) for r in ref.review_many(objs)]
+        if g != w:
+            raise AssertionError(f"inventory parity: review batch {b} differs")
+        n_review += sum(len(x) for x in g)
+    n_unique = sum(1 for k in got if k[0] in UNIQUENESS)
+    if not n_unique or not pruned:
+        raise AssertionError(
+            f"inventory parity: {n_unique} uniqueness results, "
+            f"{pruned} pruned renders")
+    print(json.dumps({
+        "phase": "inventory_parity", "rows": n_rows,
+        "constraints": n_constraints + 2, "audit_results": len(got),
+        "uniqueness_results": n_unique, "review_results": n_review,
+        "pruned_renders": pruned,
+        "row_features": {k: int(v.sum()) for k, v in
+                         (drv._corpus[TARGET].row_feats or {}).items()},
+        "seconds": time.perf_counter() - t0,
+    }), flush=True)
+
+
+def phase_inventory(device: str, rec, n_rows: int = 100_000,
+                    n_constraints: int = 500, n_batches: int = 8,
+                    batch: int = 256):
+    """BASELINE config #5 at full width: one cold audit sweep of n_rows
+    mixed-GVK rows under n_constraints constraints (the two uniqueness
+    joins included), then n_batches review batches of `batch` mixed
+    reviews, some reusing a host or selector the inventory holds. The
+    uniqueness violations must equal a plain-Python grouping of the
+    corpus, and every uniqueness render must go through the prune index.
+    -> (client, driver, the sweep's need pairs, launches)."""
+    import torch
+    from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver
+    from gatekeeper_tpu_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    drv = TorchDriver(device)
+    client = build_mixed_client(drv, n_rows, n_constraints)
+    ingest_s = time.perf_counter() - t0
+    sweep = {}
+    need_pairs = drv._need_pairs
+
+    def keep_pairs(target, cs, corpus, phases):
+        out = need_pairs(target, cs, corpus, phases)
+        if corpus.data_gen >= 0 and "pairs" not in sweep:
+            sweep["pairs"] = list(out[0])
+        return out
+
+    drv._need_pairs = keep_pairs
+    watch = RenderWatch(drv)
+    watch.install()
+    rec.install()
+    ops.reset_launches()
+    try:
+        t1 = time.perf_counter()
+        results = client.audit().by_target[TARGET].results
+        if drv.device.type == "cuda":
+            torch.cuda.synchronize()
+        audit_s = time.perf_counter() - t1
+        audit_stats = dict(drv.stats, upload=_upload(drv.stats))
+        batches = []
+        review_flagged = {kind: set() for kind in UNIQUENESS}
+        reviewed = []
+        for b in range(n_batches):
+            objs = mixed_review_batch(b, batch, n_rows)
+            t2 = time.perf_counter()
+            resps = client.review_many(objs)
+            st = dict(drv.stats)
+            batches.append({
+                "seconds": time.perf_counter() - t2,
+                "results": st["n_results"],
+                "pruned_renders": st["pruned_renders"],
+                "interp_rendered_pairs": st["interp_rendered_pairs"],
+                "phase_seconds": st["phase_seconds"],
+            })
+            for o, r in zip(objs, resps):
+                reviewed.append(o.object)
+                for kind, keys in _flagged(r.by_target[TARGET].results).items():
+                    review_flagged[kind] |= keys
+        launches = dict(ops.LAUNCHES)
+    finally:
+        rec.remove()
+        watch.remove()
+        del drv._need_pairs
+    if drv.device.type == "cuda":
+        missing = [k for k in PATH_KERNELS["inventory"] if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"inventory: kernels never launched: {missing}")
+    corpus_objs = [make_mixed(i) for i in range(n_rows)]
+    want = uniqueness_groups(corpus_objs)
+    got = _flagged(results)
+    for kind in UNIQUENESS:
+        if got[kind] != want[kind] or not want[kind]:
+            raise AssertionError(
+                f"inventory: {kind} flags {len(got[kind])} objects, the "
+                f"grouping {len(want[kind])}")
+    # each reviewed Service/Ingress violates iff another object of the
+    # corpus holds one of its keys
+    index = uniqueness_index(corpus_objs)
+    want_rev = {kind: set() for kind in UNIQUENESS}
+    for o in reviewed:
+        kind, keys = uniqueness_keys(o)
+        me = (o["metadata"].get("namespace"), o["metadata"]["name"])
+        if kind and any(index[kind].get(k, set()) - {me} for k in keys):
+            want_rev[kind].add(me)
+    if review_flagged != want_rev or not any(want_rev.values()):
+        raise AssertionError(
+            f"inventory: review batches flag "
+            f"{ {k: len(v) for k, v in review_flagged.items()} }, the corpus "
+            f"keys { {k: len(v) for k, v in want_rev.items()} }")
+    pruned = audit_stats["pruned_renders"] + sum(b["pruned_renders"] for b in batches)
+    if not pruned or watch.full:
+        raise AssertionError(
+            f"inventory: {pruned} pruned renders, {watch.full} uniqueness "
+            "renders against the whole inventory")
+    corpus = drv._corpus[TARGET]
+    print(json.dumps({
+        "phase": "inventory", "rows": n_rows, "constraints": n_constraints,
+        "kinds": {k: sum(1 for o in corpus_objs if o["kind"] == k)
+                  for k in ("Pod", "Service", "Ingress", "Namespace")},
+        "ingest_seconds": ingest_s, "audit_seconds": audit_s,
+        "audit_results": len(results),
+        "uniqueness_flagged": {k: len(v) for k, v in got.items()},
+        "fallback_rows": int(corpus.row_fallback.sum()),
+        "invdup_bits": {k: int(v.sum()) for k, v in (corpus.row_feats or {}).items()},
+        "audit_stats": audit_stats, "batches": batches,
+        "review_flagged": {k: len(v) for k, v in review_flagged.items()},
+        "render_split": {
+            "host_rendered": audit_stats["host_rendered_pairs"],
+            "interp_rendered": audit_stats["interp_rendered_pairs"],
+            "pruned": audit_stats["pruned_renders"],
+            "pruned_all_batches": pruned,
+            "uniqueness_full_inventory": watch.full,
+        },
+        "need_pairs": len(sweep["pairs"]), "launches": launches,
+    }, default=float), flush=True)
+    return client, drv, sweep["pairs"], launches
+
+
+def phase_full_output(client, drv, rec, sweep_pairs):
+    """The full-output audit step (FusedKernel.run, match x programs x
+    totals, unchunked) over the inventory phase's client at full width.
+    K7 must equal its plain version, counts the per-program evaluator,
+    match K1's plain version, and each compiled constraint without row
+    features total its need pairs of the sweep. entry()'s step runs once.
+    -> launches."""
+    import numpy as np
+    import torch
+    from gatekeeper_tpu_torch.engine.programs import ProgramEvaluator
+    from gatekeeper_tpu_torch.entry import entry
+    from gatekeeper_tpu_torch.kernels import ops
+
+    on_card = drv.device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    cs = drv._cset[TARGET]
+    corpus = drv._corpus[TARGET]
+    fn, args, (c, n, _key) = drv.kernel.prepare(
+        cs.programs, cs.ms, corpus.fb, corpus.tok, corpus.g
+    )
+    sync()
+    prepare_s = time.perf_counter() - t0
+    rec.install()
+    ops.reset_launches()
+    try:
+        t1 = time.perf_counter()
+        match, counts, totals = fn(*args)
+        sync()
+        run_s = time.perf_counter() - t1
+        launches = dict(ops.LAUNCHES)
+    finally:
+        rec.remove()
+    missing = [k for k in PATH_KERNELS["full_output"] if launches[k] <= 0]
+    if on_card and missing:
+        raise AssertionError(f"full output: kernels never launched: {missing}")
+    ms_u, spec_map, fb_dev, tok_dev, _tabs, crow = args
+    plain_totals = ops.full_totals_plain(match, counts, crow, n)
+    if not torch.equal(totals, plain_totals):
+        raise AssertionError("full output: K7 differs from full_totals_plain")
+    plain_match = ops.match_matrix_plain(ms_u, fb_dev)[spec_map.long()]
+    if not torch.equal(match, plain_match):
+        raise AssertionError("full output: match differs from K1's plain version")
+    # counts against the per-program evaluator, once per distinct program
+    ev = ProgramEvaluator(drv.patterns, drv.tables)
+    crow_h = crow.cpu().numpy()
+    uniq = {}
+    for ci, p in enumerate(cs.programs):
+        if p is not None:
+            uniq.setdefault(id(p), (p, []))[1].append(int(crow_h[ci]))
+    for p, rows in uniq.values():
+        want = ev.eval([p], tok_dev, corpus.g)[0]
+        if not torch.equal(counts[rows], want.expand(len(rows), n)):
+            raise AssertionError("full output: counts differ from eval()")
+    # totals against the sweep's need pairs (K4's output)
+    totals_h = totals.cpu().numpy()
+    fb_rows = np.nonzero(corpus.row_fallback)[0]
+    per_c = np.zeros(c, np.int64)
+    for n_i, c_i in sweep_pairs:
+        if not corpus.row_fallback[n_i]:
+            per_c[c_i] += 1
+    if fb_rows.size:
+        mv = (match[:, fb_rows].cpu().numpy()
+              & (counts.cpu().numpy()[np.maximum(crow_h, 0)][:, fb_rows] > 0))
+        per_c += np.where(crow_h >= 0, mv.sum(1), 0)
+    tied = [ci for ci, p in enumerate(cs.programs)
+            if p is not None and not p.row_features]
+    bad = [ci for ci in tied if per_c[ci] != totals_h[ci]]
+    if bad or not totals_h[tied].any():
+        raise AssertionError(
+            f"full output: totals differ from the sweep's need pairs at {bad[:5]}")
+    # the harness step, once
+    efn, eargs = entry(drv.device)
+    e_match, e_counts, e_totals = efn(*eargs)
+    if not torch.equal(e_totals, ops.full_totals_plain(e_match, e_counts, eargs[-1],
+                                                       e_match.shape[1])):
+        raise AssertionError("full output: entry() totals differ")
+    # device time of one step, split
+    split = _split_device_ms(lambda: fn(*args), launches) if on_card else None
+    print(json.dumps({
+        "phase": "full_output", "constraints": c, "rows": n,
+        "compiled_rows": int(counts.shape[0]),
+        "tokens": list(tok_dev["spath"].shape),
+        "prepare_seconds": prepare_s, "run_seconds": run_s,
+        "device_ms": split, "totals_sum": int(totals_h.sum()),
+        "tied_constraints": len(tied), "fallback_rows": int(fb_rows.size),
+        "entry_shapes": [list(e_match.shape), list(e_counts.shape)],
+        "launches": launches,
+    }, default=float), flush=True)
+    return launches
+
+
+def _split_device_ms(fn, launches, reps: int = 3):
+    """Device ms per call of fn by kernel family (torch.profiler): all
+    device work, K1, K7, K2, K3 and K6, and the program bodies (all but
+    K1 and K7). A profile that misses a record of the families' launches
+    is taken again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fam = {"match_kernel": ("k1", "match_matrix"),
+           "totals_kernel": ("k7", "full_totals"),
+           "slab_kernel": ("k2", "slab_gather"),
+           "egroup_kernel": ("k3", "egroup"),
+           "gather_elem_kernel": ("k6", "gather_elem")}
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _window_head()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {"total": 0.0, "k1": 0.0, "k7": 0.0, "k2": 0.0, "k3": 0.0,
+               "k6": 0.0}
+        seen = {}
+        for e in prof.key_averages():
+            name = _kernel_name(e)
+            if name == HEAD_KERNEL:
+                continue
+            ms = _device_time_us(e) / 1e3 / reps
+            out["total"] += ms
+            if name in fam:
+                out[fam[name][0]] += ms
+                seen[fam[name][1]] = seen.get(fam[name][1], 0) + e.count
+        want = {k: reps * n for k, n in launches.items()
+                if n and k in {f[1] for f in fam.values()}}
+        if all(seen.get(k, 0) == n for k, n in want.items()):
+            out["program_bodies"] = out["total"] - out["k1"] - out["k7"]
+            return out
+    raise AssertionError(f"profile recorded {seen}, the step launches {want}")
+
+
 def _match_needs(ms, fb, n: int):
     """-> (bytes, operations) K1 needs for this staged spec set: the spec
     arrays and the output whole, and a review feature array only where
@@ -1008,6 +1626,18 @@ def _bound(name, args, out):
         )
         b = 2 * delta
         ops = 2 * delta // 16  # one 16-byte load and store per vector
+    elif name == "full_totals":
+        match, counts, crow, n_valid = args
+        live = torch.unique(crow[(crow >= 0) & (crow < (
+            0 if counts is None else counts.shape[0]))])
+        # each match row whole (N bytes), the distinct counts rows that
+        # some live constraint reads (4 bytes per valid column), crow and
+        # the totals
+        b = (match.numel() + int(live.numel()) * n_valid * 4
+             + _nbytes(crow, out))
+        # a compare, an and and an add per valid element of a live row
+        ops = 3 * int(((crow >= 0) & (crow < (
+            0 if counts is None else counts.shape[0]))).sum()) * n_valid
     elif name == "gather_elem":
         v, idx0, idx1, axis = args[:4]
         g0, g1 = args[4], args[5]
@@ -1064,6 +1694,40 @@ def _library_call(name, args):
             lambda: torch.where(live, torch.gather(v, 1, safe), default),
             "torch.gather + torch.where (two calls; index untimed)",
         )
+    if name == "full_totals":
+        match, counts, crow, n_valid = args
+        if counts is None:
+            return None
+        rows = torch.nonzero(crow >= 0).flatten()
+        src = counts[crow[rows].long()]
+
+        def composed():
+            viol = torch.zeros(match.shape, dtype=torch.int32, device=match.device)
+            viol.index_copy_(0, rows, src)
+            return torch.sum((torch.where(match, viol, 0) > 0)[:, :n_valid], 1)
+
+        return composed, ("torch composition, not one call: zeros + "
+                          "index_copy_ + where + gt + sum (the gather of "
+                          "counts untimed)")
+    if name == "egroup":
+        idx0, idx1, mask, val, axis, g0, g1, how, init = args
+        idx, g = ops._egroup_index(idx0, idx1, axis, g0, g1)
+        live = mask & (idx >= 0) & (idx < g)
+        n = idx.shape[0]
+        # every dead token lands in one spare slot past the last row
+        flat = torch.where(
+            live, torch.arange(n, device=idx.device)[:, None] * g + idx, n * g
+        ).reshape(-1).long()
+        if how == "any":
+            src, reduce, fill = (val != 0).to(torch.int32), "amax", 0
+        else:
+            src = val.to(torch.float32 if val.dtype == torch.float32 else torch.int32)
+            reduce, fill = ("amax", init) if how == "max" else ("sum", 0)
+        buf = torch.full((n * g + 1,), fill, dtype=src.dtype, device=idx.device)
+        src = src.reshape(-1)
+        return (lambda: buf.scatter_reduce_(0, flat, src, reduce)), (
+            f"scatter_reduce_ ({reduce}) over the flat row*G+idx index (one "
+            "call; index, values and output buffer prepared untimed)")
     if name == "slab_gather":
         tab, ids = args[0], args[1]
         ov = args[2] if len(args) > 2 else None
@@ -1080,14 +1744,15 @@ def _profiled(fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _window_head()
+        t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     rows = [
         (e.key, _device_time_us(e), e.count)
-        for e in prof.key_averages()
+        for e in prof.key_averages() if _kernel_name(e) != HEAD_KERNEL
     ]
     busy = sum(r[1] for r in rows) / 1e6
     top = sorted(rows, key=lambda r: -r[1])[:6]
@@ -1272,6 +1937,16 @@ def _random_variants(device, seed: int = 7):
         src = r.integers(-50, 50, dshape)
         deltas.append(src.astype(np.float64 if k % 2 else dt))
     out.append(("flush_deltas", (bufs, fills, deltas), {}))
+    # K7: ragged widths (rows of match and counts then cannot share their
+    # alignment), -1 and out-of-range count rows, n_valid cut short, no
+    # compiled row at all
+    for c, n, cc, cut in ((500, 4099, 37, 5), (64, 100_000, 64, 0),
+                          (33, 4101, 7, 4101), (9, 77, 0, 3)):
+        match = t(r.random((c, n)) < 0.5)
+        counts = t(r.integers(-2, 3, (cc, n)).astype(np.int32)) if cc else None
+        crow = r.integers(-1, cc + 2, c).astype(np.int32) if cc else np.full(
+            c, -1, np.int32)
+        out.append(("full_totals", (match, counts, t(crow), n - cut), {}))
     return out
 
 
@@ -1322,6 +1997,12 @@ def _flat(out):
     return out
 
 
+def _size(name, args, out):
+    """The size a kernel's timed variant is picked by: its [C, N] input
+    for K7, its output otherwise."""
+    return args[0].numel() if name == "full_totals" else out.numel()
+
+
 def phase_kernels(rec, launches):
     """-> the kernel table rows. `launches`: {path: {kernel: count}}."""
     import torch
@@ -1348,8 +2029,10 @@ def phase_kernels(rec, launches):
             if err != 0.0:
                 raise AssertionError(f"kernels: {name}{key} differs by {err}")
             worst = max(worst, err)
-            # time the variant with the largest output (the main cost)
-            if entry is None or out_k.numel() > entry[2].numel():
+            # time the variant with the largest input (the main cost)
+            if entry is None or (
+                _size(name, args, out_k) > _size(name, entry[0], entry[2])
+            ):
                 entry = (args, kw, out_k, key)
         args, kw, out_k, key = entry
         kern = getattr(ops, name)
@@ -1409,8 +2092,14 @@ def main() -> int:
     rec, launches_full, client, drv = phase_full("cuda")
     phase_profile(client, drv)
     launches_churn = phase_audit_churn(client, drv, rec)
+    del client, drv  # the pod-only cluster; the mixed one comes next
+    torch.cuda.empty_cache()
+    phase_inventory_parity("cuda")
+    client, drv, pairs, launches_inv = phase_inventory("cuda", rec)
+    launches_out = phase_full_output(client, drv, rec, pairs)
     rows = phase_kernels(
-        rec, {"full": launches_full, "audit_churn": launches_churn}
+        rec, {"full": launches_full, "audit_churn": launches_churn,
+              "inventory": launches_inv, "full_output": launches_out}
     )
     phase_variants()
     print(json.dumps({"kernels": rows}), flush=True)

@@ -14,12 +14,20 @@ Templates the symbolic compiler cannot compile, and rows whose array
 fanout exceeds the device bucket cap (G_CAP), route to the interpreter, so
 results equal the interpreter driver's (RegoDriver) in content and order.
 
+Inventory-join templates (gatekeeper-library's uniqueingresshost and
+uniqueserviceselector shapes) compile to screens. Their "invdup:" row
+features, per-row bits that a join key is duplicated in the inventory,
+are computed on the host from inventory value counts and staged as
+[K, chunk] planes beside the corpus; flagged pairs render on the
+interpreter against the derived-key prune index's candidates, not the
+whole inventory (`stats["pruned_renders"]`).
+
 Every micro-batch goes to the device: PyTorch compiles nothing, so there
 is no cold kernel to serve around. Not carried over from TpuDriver (see
 ROADMAP.md): the static analyzer's routing and feature liveness, fault
-injection, external data, integrity canaries, cost attribution, metrics,
-partitioned dispatch, the derived-key prune index and inventory row
-features (a program that needs them raises NotImplementedError).
+injection, external data (a program reading "extdata:" row features
+raises NotImplementedError), integrity canaries, cost attribution,
+metrics and partitioned dispatch.
 """
 
 from __future__ import annotations
@@ -41,7 +49,12 @@ from ..engine.programs import Program, compile_program
 from ..engine.render import RenderSet
 from ..engine.symbolic import CompilerEnv, CompileUnsupported
 from ..engine.tables import StrTables
-from ..flatten.encoder import _bucket, batch_review_features, encode_token_table
+from ..flatten.encoder import (
+    _bucket,
+    batch_review_features,
+    encode_token_table,
+    unesc_seg,
+)
 from ..flatten.vocab import OverlayVocab, Vocab
 from ..parallel.fused import FusedKernel, decode_need
 from ..rego import ast as A
@@ -82,6 +95,10 @@ class _Corpus:
     g1: int  # second-level fanout bucket (idx1)
     row_fallback: np.ndarray  # [N] bool: route row to interpreter
     staged: Any = None  # parallel.fused.StackedCorpus, staged lazily
+    # per-row screen features (invdup join bits), host copies
+    row_feats: Optional[Dict[str, np.ndarray]] = None
+    # per-pattern join-key value counts: pid -> (counts, has_fallback)
+    value_counts: Optional[Dict[int, Any]] = None
     # ephemeral vocab overlay (review batches): the batch's novel strings
     # and their pattern/table rows, never interned globally
     vocab: Any = None
@@ -136,6 +153,11 @@ class TorchDriver(RegoDriver):
         self.render_cache_max = 65536
         self._render_errors = 0  # compiled-render failures sent to interp
         self._hot_redispatches = 0  # chunks rerun for hot-row overflow
+        # derived-key prune render caches (inventory joins): key index per
+        # data generation, and the helper oracles that build keys
+        self._prune_indexes: Dict[Tuple, Tuple[int, Any]] = {}
+        self._prune_oracles: Dict[Tuple, Any] = {}
+        self._prune_build_s = 0.0  # seconds spent building key indexes
         # last query's pair routing, render split and phase seconds
         self.stats: Dict[str, Any] = {}
 
@@ -159,8 +181,9 @@ class TorchDriver(RegoDriver):
         return n
 
     def _drop_programs(self, target: str, kind: str) -> None:
-        for key in [k for k in self._programs if k[:2] == (target, kind)]:
-            del self._programs[key]
+        for cache in (self._programs, self._prune_oracles, self._prune_indexes):
+            for key in [k for k in cache if k[:2] == (target, kind)]:
+                del cache[key]
         self._cset.pop(target, None)
         self._constraint_gen += 1
 
@@ -234,11 +257,13 @@ class TorchDriver(RegoDriver):
             prog = compile_program(env, mods, params)
         except CompileUnsupported:
             prog = None  # outside the compilable subset: interpreter
-        if prog is not None and prog.row_features:
+        feats = prog.row_features if prog is not None else ()
+        ext = [f for f in feats if f.startswith("extdata:")]
+        if ext:
             raise NotImplementedError(
-                f"template {kind}: its compiled program reads inventory row "
-                f"features {list(prog.row_features)}, which "
-                "gatekeeper_tpu_torch does not support yet"
+                f"template {kind}: its compiled program reads external-data "
+                f"row features {ext}; gatekeeper_tpu_torch has no external-"
+                "data plane yet (ROADMAP A3)"
             )
         self._programs[key] = prog
         return prog
@@ -329,11 +354,17 @@ class TorchDriver(RegoDriver):
         return corpus
 
     def _ephemeral_corpus(
-        self, target: str, reviews: List[Any], ns_cache: Dict[str, Any]
+        self, target: str, cs: _ConstraintSet, reviews: List[Any],
+        ns_cache: Dict[str, Any],
     ) -> _Corpus:
         """Encode a review batch against an OverlayVocab and build its
         pattern/table overlay blocks: the base vocab, patterns and tables
-        never change, so admission restages no table."""
+        never change, so admission restages no table. The base must be at
+        its fixed point before the overlay snapshot, so a policy with
+        inventory row features encodes the audit corpus (their counts
+        source, cached per data generation) first."""
+        if any(p is not None and p.row_features for p in cs.programs):
+            self._audit_corpus(target)
         self.patterns.sync()
         self.tables.sync()
         overlay = OverlayVocab(self.vocab)
@@ -409,16 +440,24 @@ class TorchDriver(RegoDriver):
         return corpus.staged
 
     def _need_pairs(
-        self, cs: _ConstraintSet, corpus: _Corpus, phases: Dict[str, float]
+        self, target: str, cs: _ConstraintSet, corpus: _Corpus,
+        phases: Dict[str, float],
     ) -> Tuple[List[Tuple[int, int]], int, int]:
         """Sparse evaluation: -> (review-major (n, c) pairs needing host
-        work, compiled_pairs, interp_pairs); adds stage/dispatch/decode
-        seconds to `phases`."""
+        work, compiled_pairs, interp_pairs); adds stage/row_features/
+        dispatch/decode seconds to `phases`."""
         t0 = time.perf_counter()
         if cs.policy is None:
             cs.policy = self.kernel.stage_policy(cs.programs, cs.ms)
         policy = cs.policy
         stacked = self._stage_corpus(corpus, policy)
+        t_feats = time.perf_counter()
+        needed = sorted(
+            {f for p in cs.programs if p is not None for f in p.row_features}
+        )
+        if needed:
+            feats = self._row_feature_bits(target, corpus, needed)
+            self.kernel.stage_row_feats(stacked, feats)
         t1 = time.perf_counter()
         packed, hot, n_hot, sc, si = self.kernel.dispatch_need_all(
             policy, stacked, (corpus.g, corpus.g1), r_cap=R_CAP
@@ -437,7 +476,8 @@ class TorchDriver(RegoDriver):
                 n_loc, c_is = decode_need(packed[ci], hot[ci], policy.c_pad)
             pairs.extend(zip((start + n_loc).tolist(), c_is.tolist()))
         t3 = time.perf_counter()
-        phases["stage"] = t1 - t0
+        phases["stage"] = t_feats - t0
+        phases["row_features"] = t1 - t_feats
         phases["dispatch"] = t2 - t1
         phases["decode"] = t3 - t2
         return pairs, int(sc.sum()), int(si.sum())
@@ -445,7 +485,9 @@ class TorchDriver(RegoDriver):
     def _redispatch_chunk(self, policy, corpus: _Corpus, stacked, ci: int,
                           n_hot: int):
         """Overflow path: rerun one chunk with a window that fits its hot
-        rows (the window doubles until the rerun's own n_hot fits)."""
+        rows (the window doubles until the rerun's own n_hot fits). The
+        chunk's row feature planes ride along, so the rerun flags the
+        rows the sweep counted."""
         self._hot_redispatches += 1
         r_cap = 1 << (n_hot - 1).bit_length()
         batch = stacked.chunk_view(ci)
@@ -457,6 +499,120 @@ class TorchDriver(RegoDriver):
             if out[2] <= min(r_cap, stacked.chunk):
                 return out
             r_cap = min(2 * r_cap, stacked.chunk)
+
+    # -- inventory row features (invdup join bits) ---------------------------
+
+    def _row_feature_bits(
+        self, target: str, corpus: _Corpus, names: List[str]
+    ) -> Dict[str, np.ndarray]:
+        """Per-row screen refinement bits for inventory join templates
+        (host numpy; gatekeeper_tpu/constraint/tpudriver.py:1403).
+
+        "invdup:<leaf>:<mirror>:<se>:<guards>" (encoded by the symbolic
+        compiler's clause compile) is a sound over-approximation of the
+        join's truth:
+          * a row's candidate values are its tokens at the LEAF pattern;
+            partners are counted at the MIRROR pattern (the partner-side
+            path; the leaf's own for self-joins);
+          * persistent audit corpus (its reviews ARE the inventory): a
+            value carried by >= 2 distinct rows at the mirror pattern can
+            conflict. The threshold 2 holds only when <se> is 1 (a proven
+            `not identical(obj, input.review)` guard excludes the row's
+            self-partner), no inventory row is a fallback row (whose keys
+            the counts cannot see), and the row carries every <guards>
+            identity field (rows missing one stay routed); otherwise 1;
+          * ephemeral review batch: the row holds a leaf value present
+            anywhere in the synced inventory (the audit corpus) at the
+            mirror pattern; if some inventory row is a fallback row, every
+            row routes. The interpreter re-checks exclusions.
+        Bits are cached on the corpus; fallback rows always stay routed.
+        """
+        if corpus.row_feats is None:
+            corpus.row_feats = {}
+        # alias guard: base vocab ids assigned after an ephemeral corpus's
+        # overlay snapshot collide with its overlay ids, so no id
+        # comparison below is sound; route every row
+        if corpus.vocab is not None and len(self.vocab) > corpus.v_base:
+            ones = np.ones(len(corpus.reviews), bool)
+            return {name: ones for name in names}
+        out: Dict[str, np.ndarray] = {}
+        for name in names:
+            cached = corpus.row_feats.get(name)
+            if cached is not None:
+                out[name] = cached
+                continue
+            parts = name.split(":")
+            leaf_pid, mirror_pid = int(parts[1]), int(parts[2])
+            self_excl = parts[3] == "1"
+            gpids = [int(x) for x in parts[4].split("+") if x]
+            if corpus.data_gen >= 0:
+                counts, inv_fb = self._pattern_value_counts(corpus, mirror_pid)
+                thresh = 2 if (self_excl and not inv_fb) else 1
+            else:
+                inv = self._audit_corpus(target)
+                if inv is None:
+                    counts, inv_fb = None, False
+                else:
+                    counts, inv_fb = self._pattern_value_counts(inv, mirror_pid)
+                thresh = 1
+            sel, vids = self._pattern_tokens(corpus, leaf_pid)
+            if counts is None:
+                feat = np.zeros(len(corpus.reviews), bool)
+            elif inv_fb and corpus.data_gen < 0:
+                feat = np.ones(len(corpus.reviews), bool)
+            else:
+                dup = counts >= thresh
+                safe = np.minimum(np.maximum(vids, 0), dup.shape[0] - 1)
+                hit = sel & (vids >= 0) & (vids < dup.shape[0]) & dup[safe]
+                feat = hit.any(axis=1)
+                if corpus.data_gen >= 0 and thresh >= 2 and gpids:
+                    has_all = np.ones(len(corpus.reviews), bool)
+                    for gp in gpids:
+                        gsel, gvids = self._pattern_tokens(corpus, gp)
+                        has_all &= (gsel & (gvids >= 0)).any(axis=1)
+                    feat |= ~has_all
+            feat |= np.asarray(corpus.row_fallback, bool)
+            corpus.row_feats[name] = feat
+            out[name] = feat
+        return out
+
+    def _pattern_tokens(self, corpus: _Corpus, pid: int):
+        """-> ([N, L] bool: token path matches pattern `pid`, [N, L] vids);
+        overlay path ids of an ephemeral batch read the batch's blocks."""
+        member = np.asarray(self.patterns.member)
+        spath = corpus.tok["spath"]
+        vids = corpus.tok["vid"]
+        width = member.shape[1]
+        safe = np.minimum(np.maximum(spath, 0), max(width - 1, 0))
+        sel = (spath >= 0) & (spath < width) & member[pid][safe]
+        if corpus.ov_member is not None:
+            loc = spath - corpus.v_base
+            b = corpus.ov_member.shape[0]
+            safe_loc = np.clip(loc, 0, max(b - 1, 0))
+            ov = (loc >= 0) & (loc < b) & corpus.ov_member[safe_loc, pid]
+            sel = np.where(loc >= 0, ov, sel)
+        return sel, vids
+
+    def _pattern_value_counts(self, corpus: _Corpus, pid: int):
+        """-> ([V] distinct-row counts per value id at tokens matching
+        pattern `pid`, any fallback row), cached on the corpus (review
+        batches reuse the audit corpus's counts)."""
+        if corpus.value_counts is None:
+            corpus.value_counts = {}
+        cached = corpus.value_counts.get(pid)
+        if cached is not None:
+            return cached
+        sel, vids = self._pattern_tokens(corpus, pid)
+        rows, cols = np.nonzero(sel & (vids >= 0))
+        tv = vids[rows, cols]
+        if tv.size == 0:
+            counts = np.zeros((len(self.vocab),), np.int64)
+        else:
+            pairs = np.unique(rows.astype(np.int64) * (tv.max() + 1) + tv)
+            counts = np.bincount(pairs % (tv.max() + 1), minlength=len(self.vocab))
+        result = (counts, bool(np.asarray(corpus.row_fallback).any()))
+        corpus.value_counts[pid] = result
+        return result
 
     # -- hook overrides ------------------------------------------------------
 
@@ -537,7 +693,7 @@ class TorchDriver(RegoDriver):
             ns_cache = self._ns_cache(target)
             t_policy = time.perf_counter()
             if corpus is None:
-                corpus = self._ephemeral_corpus(target, reviews, ns_cache)
+                corpus = self._ephemeral_corpus(target, cs, reviews, ns_cache)
             self.patterns.sync()
             self.tables.sync()
             phases: Dict[str, float] = {
@@ -545,13 +701,14 @@ class TorchDriver(RegoDriver):
                 "encode": encode_s + time.perf_counter() - t_policy,
             }
             up0 = dict(self.kernel.uploads)
-            pairs, stat_c, stat_i = self._need_pairs(cs, corpus, phases)
+            pairs, stat_c, stat_i = self._need_pairs(target, cs, corpus, phases)
             upload = {k: v - up0[k] for k, v in self.kernel.uploads.items()}
             upload["full_tables"] = (
                 list(self.kernel.last_full_tables)
                 if upload["full_uploads"] else []
             )
             t_render = time.perf_counter()
+            prune_s0 = self._prune_build_s
             render_cache = None
             if corpus.data_gen >= 0 and trace is None:
                 gens = (self._data_gen, self._constraint_gen)
@@ -573,7 +730,7 @@ class TorchDriver(RegoDriver):
                 )
             inventory = None
             per_review: List[List[Result]] = [[] for _ in reviews]
-            n_results = n_host = n_interp = n_cache_hits = 0
+            n_results = n_host = n_interp = n_pruned = n_cache_hits = 0
             frozen: Dict[int, Any] = {}
             for n_i, c_i in pairs:
                 out = hits.get((n_i, c_i))
@@ -587,13 +744,23 @@ class TorchDriver(RegoDriver):
                         fr = frozen.get(n_i)
                         if fr is None:
                             fr = frozen[n_i] = freeze(reviews[n_i])
-                        if inventory is None:
-                            # frozen only when the interpreter renders
-                            inventory = self._inventory(target)
-                        out = self._eval_template(
-                            target, cs.constraints[c_i], reviews[n_i],
-                            inventory, trace, frozen_review=fr,
-                        )
+                        prog = cs.programs[c_i]
+                        if prog is not None and prog.prune is not None:
+                            # the join's candidates only, not the whole
+                            # inventory
+                            out = self._render_pruned(
+                                target, cs.constraints[c_i], reviews[n_i],
+                                prog.prune, trace, fr,
+                            )
+                            n_pruned += 1
+                        else:
+                            if inventory is None:
+                                # frozen only when the interpreter renders
+                                inventory = self._inventory(target)
+                            out = self._eval_template(
+                                target, cs.constraints[c_i], reviews[n_i],
+                                inventory, trace, frozen_review=fr,
+                            )
                         n_interp += 1
                     if render_cache is not None:
                         if len(render_cache) >= self.render_cache_max:
@@ -610,6 +777,11 @@ class TorchDriver(RegoDriver):
                 "n_results": n_results,
                 "host_rendered_pairs": n_host,
                 "interp_rendered_pairs": n_interp,
+                # of those, rendered against the prune index's candidates
+                "pruned_renders": n_pruned,
+                # render seconds spent building prune indexes (once per
+                # data generation)
+                "prune_index_seconds": self._prune_build_s - prune_s0,
                 "render_cache_hits": n_cache_hits,
                 "render_errors": self._render_errors,
                 "hot_redispatches": self._hot_redispatches,
@@ -624,6 +796,154 @@ class TorchDriver(RegoDriver):
                     f"{stat_i} interpreter pairs"
                 )
             return per_review
+
+    # -- derived-key prune rendering (tpudriver.py:2476-2632) -----------------
+
+    def _prune_oracle(self, target: str, kind: str, params: Any):
+        key = (target, kind, _params_key(params))
+        cached = self._prune_oracles.get(key)
+        if cached is None:
+            cached = self._prune_oracles[key] = self._make_oracle(
+                target, kind, params
+            )
+        return cached
+
+    @staticmethod
+    def _collect_path_values(node: Any, segs: Tuple[str, ...]) -> List[Any]:
+        """Every SCALAR value reachable from `node` along `segs`, whose
+        wildcard segments ("#" array level, "*" object key, "?" either)
+        iterate every child of a dict or a list alike. Used for both sides
+        of a path-form prune plan; a superset is sound, since the
+        interpreter re-checks every candidate."""
+        frontier = [node]
+        for seg in segs:
+            nxt: List[Any] = []
+            wild = seg in ("#", "*", "?")
+            for n in frontier:
+                if wild:
+                    if isinstance(n, dict):
+                        nxt.extend(n.values())
+                    elif isinstance(n, list):
+                        nxt.extend(n)
+                elif isinstance(n, dict):
+                    key = unesc_seg(seg)
+                    if key in n:
+                        nxt.append(n[key])
+            frontier = nxt
+            if not frontier:
+                break
+        return [
+            v for v in frontier
+            if isinstance(v, (str, int, float, bool)) or v is None
+        ]
+
+    @staticmethod
+    def _plan_key(plan: Dict[str, Any]) -> Tuple:
+        if "fn" in plan:
+            return ("fn", plan["fn"], plan["tree"])
+        return ("path", plan["path"], plan["review_pattern"], plan["tree"])
+
+    def _prune_index(
+        self, target: str, kind: str, params: Any, plan: Dict[str, Any]
+    ):
+        """{frozen key -> [(path segs, obj)]} over the inventory tree,
+        built once per data generation. fn-form plans key each object by
+        the join's pure Rego helper (uniqueserviceselector's
+        flatten_selector); path-form plans by the values at the join's
+        relative path (uniqueingresshost's spec.rules[_].host), one entry
+        under each of an object's keys."""
+        ikey = (target, kind, _params_key(params)) + self._plan_key(plan)
+        cached = self._prune_indexes.get(ikey)
+        if cached is not None and cached[0] == self._data_gen:
+            return cached[1]
+        t0 = time.perf_counter()
+        fn = plan.get("fn")
+        oracle = self._prune_oracle(target, kind, params) if fn else None
+        depth = 4 if plan["tree"] == "namespace" else 3
+        tree = self.storage.get(["external", target, plan["tree"]], {})
+        index: Dict[Any, List[Tuple[Tuple[str, ...], Any]]] = {}
+
+        def rec(node, segs):
+            if len(segs) == depth:
+                if oracle is not None:
+                    k, defined = oracle(fn, node)
+                    if defined:
+                        index.setdefault(freeze(k), []).append((segs, node))
+                    return
+                seen = set()
+                for k in self._collect_path_values(node, plan["path"]):
+                    fk = freeze(k)
+                    if fk not in seen:
+                        seen.add(fk)
+                        index.setdefault(fk, []).append((segs, node))
+                return
+            if isinstance(node, dict):
+                for key2, child in node.items():
+                    rec(child, segs + (key2,))
+
+        if isinstance(tree, dict):
+            rec(tree, ())
+        self._prune_indexes[ikey] = (self._data_gen, index)
+        self._prune_build_s += time.perf_counter() - t0
+        return index
+
+    def _render_pruned(
+        self,
+        target: str,
+        constraint: Dict[str, Any],
+        review: Any,
+        plan: Dict[str, Any],
+        trace: Optional[List[str]],
+        frozen_review: Any,
+    ) -> List[Result]:
+        """Interpreter render against the inventory cut to the prune
+        index's candidates for this review's key(s). Sound because the
+        compiler proved that the violating clause implies a shared key:
+        F(candidate) == F(review subdocument) for fn-form plans, path
+        values of the candidate and of the review intersect for path-form
+        ones; and no other clause reads the inventory."""
+        kind = constraint.get("kind")
+        params = H.constraint_parameters(constraint)
+        candidates: List[Tuple[Tuple[str, ...], Any]] = []
+        if "fn" in plan:
+            cur: Any = review
+            for seg in plan["review_prefix"]:
+                if not isinstance(cur, dict) or seg not in cur:
+                    cur = None
+                    break
+                cur = cur[seg]
+            if cur is not None:
+                k, defined = self._prune_oracle(target, kind, params)(
+                    plan["fn"], cur
+                )
+                if defined:
+                    index = self._prune_index(target, kind, params, plan)
+                    candidates = index.get(freeze(k), [])
+        else:
+            # the union over the review's key values, deduped by inventory
+            # path so that a candidate sharing two keys appears once
+            keys = {
+                freeze(k)
+                for k in self._collect_path_values(review, plan["review_pattern"])
+            }
+            if keys:
+                index = self._prune_index(target, kind, params, plan)
+                seen_segs = set()
+                for fk in keys:
+                    for segs, obj in index.get(fk, []):
+                        if segs not in seen_segs:
+                            seen_segs.add(segs)
+                            candidates.append((segs, obj))
+        pruned_tree: Dict[str, Any] = {}
+        for segs, obj in candidates:
+            node = pruned_tree
+            for seg in segs[:-1]:
+                node = node.setdefault(seg, {})
+            node[segs[-1]] = obj
+        return self._eval_template(
+            target, constraint, review, freeze({plan["tree"]: pruned_tree}),
+            trace, frozen_review=frozen_review,
+        )
 
     # -- compiled message rendering ------------------------------------------
 

@@ -5,7 +5,9 @@ are the JAX package's, unchanged. A `Program` is the compiled form of one
 (template, constraint-params) pair: an Expr DAG returning per-resource
 violation counts plus the constraint's constant arrays. `ProgramEvaluator`
 evaluates programs eagerly with torch on the device the token tensors lie
-on (the counterpart of `eval_np`/`eval_jax`).
+on: `eval` (the counterpart of `eval_np`, overlay included) and
+`eval_torch` (of `eval_jax`: host tokens in, one [P, N] int32 host array
+out, after one device->host copy).
 """
 
 from __future__ import annotations
@@ -141,8 +143,8 @@ class ProgramEvaluator:
         }
         ov = overlay or {}
         g0, g1 = (g if isinstance(g, tuple) else (g, g))
-        outs = []
-        for p in programs:
+        out = torch.empty((len(programs), n), dtype=torch.int32, device=device)
+        for i, p in enumerate(programs):
             ctx = EvalCtx(
                 tok=tok,
                 pat_member=tabs["pat_member"],
@@ -158,5 +160,23 @@ class ProgramEvaluator:
                 ov_capture=ov.get("capture"),
                 ov_tabs=ov.get("tabs"),
             )
-            outs.append(p.expr.emit(ctx).to(torch.int32))
-        return torch.stack(outs, 0)
+            out[i] = p.expr.emit(ctx)
+        return out
+
+    def eval_torch(
+        self,
+        programs: Sequence[Program],
+        tok: Dict[str, Any],
+        g: Any = 8,
+        device: Any = None,
+    ) -> np.ndarray:
+        """-> host [n_programs, N] int32 violation counts: every program
+        over device tensors into one [P, N] tensor, then one device->host
+        copy. Host `tok` arrays go to `device` (the card unless the caller
+        asks for the CPU); tensors stay where they lie."""
+        dev = torch.device("cuda" if device is None else device)
+        tok_dev = {
+            k: v if isinstance(v, torch.Tensor) else to_tensor(v, dev)
+            for k, v in tok.items()
+        }
+        return self.eval(programs, tok_dev, g).cpu().numpy()

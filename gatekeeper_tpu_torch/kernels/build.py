@@ -22,7 +22,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gatekeeper_tpu_torch"
-SOURCES = ("match", "slab", "group", "need", "delta", "gather")
+SOURCES = ("match", "slab", "group", "need", "delta", "gather", "totals")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
@@ -39,6 +39,8 @@ _SIGNATURES = {
     "delta": ("gk_flush_deltas", [_P, _I, _P]),
     "gather": ("gk_gather_elem", [_P, _I, _P, _P, _I, _I, ctypes.c_uint,
                                   _P, ctypes.c_longlong, _I, _I, _P]),
+    "totals": ("gk_full_totals", [_P, _P, _I, _P, _I, ctypes.c_longlong,
+                                  ctypes.c_longlong, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""The six hand-written CUDA kernels of the fused violation path, each
-beside its plain torch version.
+"""The seven hand-written CUDA kernels of the fused violation path and the
+full-output audit step, each beside its plain torch version.
 
 Every wrapper takes the plain version for tensors that lie on the CPU (the
 tests here run that way) and launches its CUDA kernel for tensors on a CUDA
@@ -14,6 +14,8 @@ count), so a run can show that its main path went through the kernels.
     K4 need_tail     <- gatekeeper_tpu/parallel/sharding.py:852-872, 677-708
     K5 flush_deltas  <- gatekeeper_tpu/parallel/sharding.py:389-424
     K6 gather_elem   <- gatekeeper_tpu/engine/exprs.py:564-597 (EGatherElem)
+    K7 full_totals   <- gatekeeper_tpu/parallel/sharding.py:1066-1086
+                        (the totals tail of FusedAuditKernel.prepare)
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ LAUNCHES: Dict[str, int] = {
     "need_tail": 0,
     "flush_deltas": 0,
     "gather_elem": 0,
+    "full_totals": 0,
 }
 
 
@@ -711,4 +714,66 @@ def gather_elem(v, idx0, idx1, axis: str, g0: int, g1: int,
     )
     _check(rc, "gather_elem")
     LAUNCHES["gather_elem"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7 full_totals
+
+
+def full_totals_plain(match, counts, crow, n_valid: int):
+    """[C] int32: totals[c] = #{n < n_valid : match[c, n] and
+    counts[crow[c], n] > 0}, 0 where crow[c] lies outside [0, Cc). Written
+    as the JAX step writes it: counts scattered onto a [C, N] int32 `viol`
+    at the compiled constraint rows, then where / > 0 / valid / sum."""
+    c, n = match.shape
+    dev = match.device
+    viol = torch.zeros((c, n), dtype=torch.int32, device=dev)
+    if counts is not None and counts.shape[0]:
+        crow = crow.long()
+        live = (crow >= 0) & (crow < counts.shape[0])
+        rows = torch.nonzero(live).flatten()
+        viol[rows] = counts[crow[rows]]
+    valid = (torch.arange(n, device=dev) < n_valid)[None, :]
+    return torch.sum(
+        (torch.where(match, viol, 0) > 0) & valid, 1, dtype=torch.int32
+    )
+
+
+def full_totals(match, counts, crow, n_valid: int):
+    """K7 wrapper: see full_totals_plain. The kernel reads each match row
+    and the counts row it maps to once and writes only the [C] totals; no
+    [C, N] intermediate is built."""
+    ts = (match, crow) if counts is None else (match, counts, crow)
+    if not _on_cuda(*ts):
+        return full_totals_plain(match, counts, crow, n_valid)
+    match = _need(match, torch.bool, 2, "match")
+    crow = _need(crow, torch.int32, 1, "crow")
+    c, n = match.shape
+    if crow.shape[0] != c:
+        raise ValueError(f"full_totals: crow {tuple(crow.shape)} for {c} rows")
+    if counts is None:
+        cc = 0
+    else:
+        counts = _need(counts, torch.int32, 2, "counts")
+        if counts.shape[1] != n:
+            raise ValueError(
+                f"full_totals: counts {tuple(counts.shape)} vs match "
+                f"{tuple(match.shape)}"
+            )
+        cc = counts.shape[0]
+    if not 0 <= n_valid <= n:
+        raise ValueError(f"full_totals: n_valid {n_valid} outside [0, {n}]")
+    out = torch.empty((c,), dtype=torch.int32, device=match.device)
+    if c == 0:
+        return out
+    from .build import library
+
+    lib = library("totals")
+    rc = lib.gk_full_totals(
+        _ptr(match), _ptr(counts), cc, _ptr(crow), c, n, int(n_valid),
+        _ptr(out), _stream(),
+    )
+    _check(rc, "full_totals")
+    LAUNCHES["full_totals"] += 1
     return out

@@ -152,6 +152,8 @@ class StagedBatch:
     tok_dev: Dict[str, torch.Tensor]
     row_fb: torch.Tensor  # [N_pad] bool
     n_valid: int
+    # per-row feature planes ([N_pad] bool each) that ERowFeature reads
+    row: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 @dataclass
@@ -168,6 +170,8 @@ class StackedCorpus:
     # per-kind value slabs, [B, T] in the policy's slab column order
     ov_dev: Optional[Dict[str, torch.Tensor]] = None
     v_base: int = 0
+    # per-row feature planes, [K, chunk] bool each (stage_row_feats)
+    row_dev: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     def chunk_view(self, ci: int) -> StagedBatch:
         return StagedBatch(
@@ -175,6 +179,7 @@ class StackedCorpus:
             tok_dev={k: v[ci] for k, v in self.tok_dev.items()},
             row_fb=self.row_fb[ci],
             n_valid=self.n_valids[ci],
+            row={k: v[ci] for k, v in self.row_dev.items()},
         )
 
 
@@ -432,18 +437,35 @@ class FusedKernel:
             v_base=v_base,
         )
 
+    def stage_row_feats(
+        self, corpus: StackedCorpus, feats: Dict[str, np.ndarray],
+        volatile: Sequence[str] = (),
+    ) -> None:
+        """Ship per-row feature bits ([N] bool each) to the device as
+        [K, chunk] planes beside the stacked corpus. Names already staged
+        are skipped (invdup bits are constant per corpus) unless listed in
+        `volatile`."""
+        for name, arr in feats.items():
+            if name in corpus.row_dev and name not in volatile:
+                continue
+            plane = np.zeros((corpus.k, corpus.chunk), bool)
+            flat = np.asarray(arr, bool)
+            for ci in range(corpus.k):
+                start = ci * corpus.chunk
+                end = min(start + corpus.chunk, flat.shape[0])
+                if end > start:
+                    plane[ci, : end - start] = flat[start:end]
+            corpus.row_dev[name] = to_tensor(plane, self.device)
+
     # -- dispatch -------------------------------------------------------------
 
-    def _need_chunk(
+    def _slabs(
         self, policy: StagedPolicy, tabs: Dict[str, torch.Tensor],
-        batch: StagedBatch, g, r_cap: int,
-        ov: Optional[Dict[str, torch.Tensor]], v_base: int,
-    ) -> torch.Tensor:
-        """One chunk's int32 need row (ops.need_layout)."""
-        g0, g1 = _g01(g)
-        tok = batch.tok_dev
-        match_u = ops.match_matrix(policy.ms_dev, batch.fb_dev)  # [U+1, N]
-        has_ov = bool(ov)
+        tok: Dict[str, torch.Tensor], ov: Optional[Dict[str, torch.Tensor]],
+        v_base: int,
+    ) -> Dict[str, torch.Tensor]:
+        """The [N, L, T] slab of every staged table kind (K2), shared by
+        every program group and const set."""
         slabs: Dict[str, torch.Tensor] = {}
         safe_sp = torch.clamp(tok["spath"], min=0)
         safe_vid = torch.clamp(tok["vid"], min=0)
@@ -453,8 +475,23 @@ class FusedKernel:
                 continue
             ids = safe_sp if kind.startswith("pat_") else safe_vid
             slabs[kind] = ops.slab_gather(
-                t, ids, ov.get(kind) if has_ov else None, v_base
+                t, ids, ov.get(kind) if ov else None, v_base
             )
+        return slabs
+
+    def _group_counts(
+        self, policy: StagedPolicy, tabs: Dict[str, torch.Tensor],
+        tok: Dict[str, torch.Tensor], g,
+        ov: Optional[Dict[str, torch.Tensor]] = None, v_base: int = 0,
+        row: Optional[Dict[str, torch.Tensor]] = None,
+    ):
+        """The program bodies (eager torch ops): yields, per signature
+        group, (constraint rows [R] long, int32 counts [R, N]). A group's
+        body runs once per distinct const set; the sets' [Ku, N] outputs
+        are gathered out to the group's rows."""
+        g0, g1 = _g01(g)
+        has_ov = bool(ov)
+        slabs = self._slabs(policy, tabs, tok, ov if has_ov else None, v_base)
         str_tabs = {k: v for k, v in tabs.items() if not k.endswith("!T")}
         ov_cols = None
         if has_ov:
@@ -465,7 +502,6 @@ class FusedKernel:
                 for name, col in cols.items()
             }
         n = tok["spath"].shape[0]
-        viol = torch.zeros((policy.c_pad, n), dtype=torch.bool, device=self.device)
         for expr, grows, cmap, lanes in zip(
             policy.group_exprs, policy.group_rows, policy.group_cmaps,
             policy.group_consts,
@@ -482,21 +518,37 @@ class FusedKernel:
                     g1=g1,
                     slabs=slabs,
                     slab_cols=policy.slab_cols,
+                    row=row,
                     v_base=v_base if has_ov else None,
                     ov_slabs=ov if has_ov else None,
                     ov_cols=ov_cols,
                 )
-                return expr.emit(ctx).to(torch.int32) > 0
+                return expr.emit(ctx).to(torch.int32)
 
             rows_t = torch.as_tensor(grows, dtype=torch.long, device=self.device)
             if lanes:
-                # [Ku, N] over distinct const sets, gathered out to the
-                # group's constraint rows
                 out_u = torch.stack([eval_one(consts) for consts in lanes])
                 cmap_t = torch.as_tensor(cmap, dtype=torch.long, device=self.device)
-                viol[rows_t] = out_u[cmap_t]
+                yield rows_t, out_u[cmap_t]
             else:
-                viol[rows_t] = eval_one({}).expand(len(grows), n)
+                # const-free program: every row of the group is the same
+                yield rows_t, eval_one({}).expand(len(grows), n)
+
+    def _need_chunk(
+        self, policy: StagedPolicy, tabs: Dict[str, torch.Tensor],
+        batch: StagedBatch, g, r_cap: int,
+        ov: Optional[Dict[str, torch.Tensor]], v_base: int,
+    ) -> torch.Tensor:
+        """One chunk's int32 need row (ops.need_layout); ERowFeature reads
+        the chunk's own feature planes."""
+        tok = batch.tok_dev
+        match_u = ops.match_matrix(policy.ms_dev, batch.fb_dev)  # [U+1, N]
+        n = tok["spath"].shape[0]
+        viol = torch.zeros((policy.c_pad, n), dtype=torch.bool, device=self.device)
+        for rows_t, counts in self._group_counts(
+            policy, tabs, tok, g, ov, v_base, batch.row
+        ):
+            viol[rows_t] = counts > 0
         return ops.need_tail(
             match_u, policy.spec_map, viol, policy.compiled_mask,
             batch.row_fb, batch.n_valid, r_cap,
@@ -526,7 +578,8 @@ class FusedKernel:
         ov_in: Optional[Dict[str, torch.Tensor]] = None, v_base: int = 0,
     ) -> Tuple[np.ndarray, np.ndarray, int, int, int]:
         """One chunk with its own hot-row window: -> (packed, hot, n_hot,
-        compiled_pairs, interp_pairs)."""
+        compiled_pairs, interp_pairs). The chunk's row feature planes ride
+        on `batch` (StackedCorpus.chunk_view)."""
         n_pad = batch.tok_dev["spath"].shape[0]
         r_cap = min(r_cap, n_pad)
         tabs = self._tables_device(policy)
@@ -535,6 +588,75 @@ class FusedKernel:
             row[None, :].cpu().numpy(), policy.c_pad, r_cap
         )
         return packed[0], hot[0], int(n_hot[0]), int(sc[0]), int(si[0])
+
+    # -- full output (the harness step) ----------------------------------------
+
+    def prepare(
+        self,
+        programs: Sequence[Optional[Program]],
+        ms: Dict[str, np.ndarray],
+        fb: Dict[str, np.ndarray],
+        tok: Dict[str, np.ndarray],
+        g,
+    ):
+        """-> (fn, args, (c, n, key)): `fn(*args)` gives (match [C, N]
+        bool, counts [Cc, N] int32 or None, totals [C] int32) on the
+        device, unchunked, for the C constraints of `ms` (index-aligned
+        with `programs`; None routes a constraint to the interpreter: no
+        counts row, total 0) over the N reviews of `fb`/`tok`. Counts
+        rows follow the compiled programs in constraint order. No row
+        feature is supplied, so ERowFeature reads True (the coarse
+        screen), as in the JAX step."""
+        c = next(iter(ms.values())).shape[0]
+        n = next(iter(fb.values())).shape[0]
+        policy = self.stage_policy(programs, ms)
+        crow = np.full((c,), -1, np.int32)
+        compiled = [i for i, p in enumerate(programs) if p is not None]
+        crow[compiled] = np.arange(len(compiled), dtype=np.int32)
+        fb_dev = {k: to_tensor(v, self.device) for k, v in fb.items()}
+        tok_dev = {k: to_tensor(v, self.device) for k, v in tok.items()}
+        tabs = self._tables_device(policy)
+        crow_dev = to_tensor(crow, self.device)
+        n_compiled = len(compiled)
+        key = (
+            tuple(tuple(r) for r in policy.group_rows), tuple(compiled), g, n,
+        )
+
+        def run_fused(ms_in, spec_map, fb_in, tok_in, tabs_in, crow_in):
+            match = ops.match_matrix(ms_in, fb_in)[spec_map.long()]  # [C, N]
+            counts = None
+            if n_compiled:
+                counts = torch.zeros(
+                    (n_compiled, n), dtype=torch.int32, device=self.device
+                )
+                for rows_t, out in self._group_counts(
+                    policy, tabs_in, tok_in, g
+                ):
+                    counts[crow_in[rows_t].long()] = out
+            totals = ops.full_totals(match, counts, crow_in, n)
+            return match, counts, totals
+
+        args = (policy.ms_dev, policy.spec_map, fb_dev, tok_dev, tabs, crow_dev)
+        return run_fused, args, (c, n, key)
+
+    def run(
+        self,
+        programs: Sequence[Optional[Program]],
+        ms: Dict[str, np.ndarray],
+        fb: Dict[str, np.ndarray],
+        tok: Dict[str, np.ndarray],
+        g,
+    ) -> Tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
+        """-> host (match [C, N] bool, counts [Cc, N] int32 | None,
+        totals [C] int32): the compiled-path violation totals per
+        constraint (see prepare)."""
+        fn, args, (c, n, _key) = self.prepare(programs, ms, fb, tok, g)
+        match, counts, totals = fn(*args)
+        return (
+            match.cpu().numpy()[:c, :n],
+            None if counts is None else counts.cpu().numpy()[:, :n],
+            totals.cpu().numpy()[:c],
+        )
 
 
 def unpack_need(buf: np.ndarray, c_pad: int, r: int):

@@ -94,6 +94,35 @@ def test_audit_plane_imports_with_jax_blocked():
     assert int(out.stdout.strip().splitlines()[-1]) > 0
 
 
+def test_entry_and_inventory_joins_run_with_jax_blocked():
+    """The harness step (gatekeeper_tpu_torch.entry) and an audit over the
+    uniqueness joins run on the CPU in an interpreter where importing jax
+    or the JAX package fails."""
+    assert "gatekeeper_tpu_torch.entry" in _modules()
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'gatekeeper_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import chip_smoke\n"
+        "from gatekeeper_tpu_torch.entry import entry\n"
+        "from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver\n"
+        "fn, args = entry(device='cpu')\n"
+        "match, counts, totals = fn(*args)\n"
+        "drv = TorchDriver(device='cpu')\n"
+        "c = chip_smoke.build_mixed_client(drv, 300, 6)\n"
+        "r = c.audit().by_target[chip_smoke.TARGET].results\n"
+        "print(int(totals.sum()), drv.stats['pruned_renders'], len(r))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    totals, pruned, results = map(int, out.stdout.split())
+    assert totals > 0 and pruned > 0 and results > 0
+
+
 def test_no_jax_import_statements():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PKG):
