@@ -64,11 +64,21 @@ Phases, one line each on stdout, in this order:
            EGroup sum/max, int32/float32 values, g1/g01 axes, overlay
            slabs, a hot-row window smaller than the hot rows, K6 on g0 and
            with idx1 past g1, K5 at unaligned fills across segments, K7 at
-           ragged widths with -1 rows and a short n_valid).
+           ragged widths with -1 rows and a short n_valid; K2 and K3 at the
+           edge widths of their launch plans and on views that start off
+           16-byte alignment).
 
 The line before the last is the kernel table as one JSON object; the last
 line is {"ok": true, "device": {...}}. Any failing phase raises, and the
 script exits nonzero without that line; so does a machine without CUDA.
+
+    python3 chip_smoke.py --probe [--tree DIR]
+
+builds K2 and K3 alone (from DIR, another checkout of this repo, if
+given), prints their ptxas report and a SASS summary, and times them at
+the main path's shapes on seeded inputs beside their plain versions and
+bounds; the SASS listing goes beside the built kernels
+(build/gatekeeper_tpu_torch/probe_sass_*.txt).
 """
 
 from __future__ import annotations
@@ -1895,6 +1905,8 @@ def _random_variants(device, seed: int = 7):
             -9, 99, (b, cols)).astype(dt)
         out.append(("slab_gather", (t(tab), ids, None, 0), {}))
         out.append(("slab_gather", (t(tab), ids, t(ov), v - 40), {}))
+    out += _slab_edge_variants(r, t)
+    out += _egroup_edge_variants(r, t)
     c, n2, u = 300, 20000, 7
     match_u = r.random((u, n2)) < 0.7
     spec_map = r.integers(1, u, c).astype(np.int32)
@@ -1947,6 +1959,91 @@ def _random_variants(device, seed: int = 7):
         crow = r.integers(-1, cc + 2, c).astype(np.int32) if cc else np.full(
             c, -1, np.int32)
         out.append(("full_totals", (match, counts, t(crow), n - cut), {}))
+    return out
+
+
+def _offset_view(t, a, offset: int):
+    """`a` on the device as a contiguous view `offset` elements into a
+    larger buffer: its start is then not 16-byte aligned."""
+    import numpy as np
+
+    flat = np.zeros(a.size + offset, a.dtype)
+    flat[offset:] = a.reshape(-1)
+    return t(flat)[offset:].view(a.shape)
+
+
+def _slab_edge_variants(r, t):
+    """K2 at the widths its launch plan treats apart (rows of 1, 3, 16, 17,
+    44 and 45 elements of 1 or 4 bytes: copy words of 1 to 16 bytes, tiles
+    of 16 to 256 tokens), a token count that is not a multiple of any
+    tile, ids below 0, at V - 1, at v_base - 1, at v_base and past the
+    overlay, and table, overlay and ids views that start off alignment."""
+    import numpy as np
+
+    out = []
+    v, b, v_base = 700, 50, 650  # ids at or past v_base read the overlay
+    edge = np.array([-7, -1, 0, v - 1, v_base - 1, v_base, v_base + b - 1,
+                     v_base + b, v_base + b + 9, v + 3], np.int32)
+    for cols in (1, 3, 16, 17, 44, 45):
+        for dt in (np.bool_, np.int32, np.float32):
+            def table(rows):
+                if dt == np.bool_:
+                    return r.random((rows, cols)) < 0.5
+                return r.integers(-99, 99, (rows, cols)).astype(dt)
+
+            ids = r.integers(-3, v + 5, (37, 29)).astype(np.int32)
+            ids.reshape(-1)[: edge.size] = edge
+            tab, ov = table(v), table(b)
+            out.append(("slab_gather", (t(tab), t(ids), t(ov), v_base), {}))
+            out.append(("slab_gather", (t(tab), t(ids), None, 0), {}))
+            # views one element into their buffers
+            out.append(("slab_gather", (_offset_view(t, tab, 1),
+                                        _offset_view(t, ids, 1),
+                                        _offset_view(t, ov, 1), v_base), {}))
+    return out
+
+
+# EGroup slot counts with the axis that gives each: (G, axis, g0, g1)
+EGROUP_EDGE_G = ((1, "g0", 1, 3), (31, "g1", 5, 31), (32, "g01", 8, 4),
+                 (33, "g0", 33, 2), (64, "g01", 16, 4), (65, "g1", 3, 65),
+                 (1024, "g01", 32, 32))
+
+
+def _egroup_edge_variants(r, t):
+    """K3 at every G of EGROUP_EDGE_G (bits in registers up to 64 slots,
+    shared memory above) x L in 1, 17, 128, 130 (vector loads at 128,
+    scalar loads elsewhere) x any/sum/max x bool/int32/float32 values, on
+    257 rows (not a multiple of a block's rows) with a row whose mask is
+    all false and a row where every token hits slot 0; and at L = 128 a
+    mask, an idx0 and a value view that start off alignment (scalar
+    loads)."""
+    import numpy as np
+
+    out = []
+    n = 257
+    for g, axis, g0, g1 in EGROUP_EDGE_G:
+        for l in (1, 17, 128, 130):
+            idx0 = r.integers(-1, g0 + 2, (n, l)).astype(np.int32)
+            idx1 = r.integers(-1, g1 + 2, (n, l)).astype(np.int32)
+            mask = r.random((n, l)) < 0.6
+            mask[3] = False
+            idx0[5], idx1[5], mask[5] = 0, 0, True
+            vals = {
+                "bool": r.random((n, l)) < 0.5,
+                "int32": r.integers(-3, 900, (n, l)).astype(np.int32),
+                "float32": r.integers(-3, 900, (n, l)).astype(np.float32),
+            }
+            for how in ("any", "sum", "max"):
+                for vname, val in vals.items():
+                    init = (-(10.0**30) if vname == "float32" and how == "max"
+                            else -1)
+                    out.append(("egroup", (t(idx0), t(idx1), t(mask), t(val),
+                                           axis, g0, g1, how, init), {}))
+                    if l == 128 and vname != "bool":
+                        out.append(("egroup", (
+                            _offset_view(t, idx0, 1), t(idx1),
+                            _offset_view(t, mask, 3), _offset_view(t, val, 1),
+                            axis, g0, g1, how, init), {}))
     return out
 
 
@@ -2075,12 +2172,139 @@ def phase_kernels(rec, launches):
     return rows
 
 
+# -- probe: K2 and K3 alone (python3 chip_smoke.py --probe [--tree DIR]) ------
+
+PROBE_SOURCES = ("slab", "group")
+
+
+def _sass_summary(lib):
+    """cuobjdump -sass of one built library -> ({function: {"instructions":
+    n, "calls": [call targets], "conversions": n}}, the raw listing).
+    "conversions" counts I2F, F2I and MUFU instructions, the quarter-rate
+    ops of a division by a runtime divisor."""
+    import re
+
+    from gatekeeper_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = out.setdefault(m.group(1), {"instructions": 0, "calls": [],
+                                             "conversions": 0})
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)",
+                      line)
+        if fn is None or not m:
+            continue
+        op, rest = m.group(2), m.group(3)
+        fn["instructions"] += 1
+        if op.startswith("CALL"):
+            target = rest.split(";")[0].strip()
+            if target not in fn["calls"]:
+                fn["calls"].append(target)
+        if op.split(".")[0] in ("I2F", "F2I", "MUFU"):
+            fn["conversions"] += 1
+    return out, text
+
+
+def _probe_cases(device):
+    """K2 and K3 at the main path's timed shapes, on seeded synthetic
+    inputs: [32768, 128] tokens, a [100160, 44] bool table (with and
+    without a 256-row overlay); EGroup onto g01 = 16 x 4 slots, at the
+    main path's live-token share (0.27%), at 12% and at half."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(4)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    n, l, v, cols = 32768, 128, 100_160, 44
+    tab = t(r.random((v, cols)) < 0.5)
+    ov = t(r.random((256, cols)) < 0.5)
+    ids = t(r.integers(0, v, (n, l)).astype(np.int32))
+    ids_ov = t(r.integers(0, v + 256, (n, l)).astype(np.int32))
+    g0, g1 = 16, 4
+    idx0 = t(r.integers(-1, g0, (n, l)).astype(np.int32))
+    idx1 = t(r.integers(-1, g1, (n, l)).astype(np.int32))
+    sparse = t(r.random((n, l)) < 0.0027)
+    mid = t(r.random((n, l)) < 0.12)
+    dense = t(r.random((n, l)) < 0.5)
+    ints = t(r.integers(-3, 900, (n, l)).astype(np.int32))
+    return [
+        ("k2 [32768,128,44] bool", "slab_gather", (tab, ids, None, 0)),
+        ("k2 [32768,128,44] bool overlay", "slab_gather",
+         (tab, ids_ov, ov, v)),
+        ("k3 [32768,64] g01 any, 0.27% live", "egroup",
+         (idx0, idx1, sparse, sparse, "g01", g0, g1, "any", -1)),
+        ("k3 [32768,64] g01 any, 12% live", "egroup",
+         (idx0, idx1, mid, mid, "g01", g0, g1, "any", -1)),
+        ("k3 [32768,64] g01 max int32, 50% live", "egroup",
+         (idx0, idx1, dense, ints, "g01", g0, g1, "max", -1)),
+    ]
+
+
+def phase_probe(tree=None):
+    """Build K2 and K3 from `tree` (a checkout of this repo; default this
+    one), report ptxas registers and spills, the SASS instruction count
+    and subroutine calls of each kernel, and time each kernel at the main
+    path's shapes beside its plain version and its bound. The full SASS
+    listing goes to probe_sass_<tag>.txt in the kernels' build directory."""
+    import torch
+
+    root = os.path.abspath(tree or ROOT)
+    sys.path.insert(0, root)
+    from gatekeeper_tpu_torch.kernels import build, ops
+
+    if not build.__file__.startswith(root):
+        raise AssertionError(f"probe: kernels imported from {build.__file__}")
+    tag = "tree" if tree else "this"
+    for name in PROBE_SOURCES:  # compile anew, for the ptxas report
+        build._target(name).unlink(missing_ok=True)
+    logs = build.build_all(PROBE_SOURCES)
+    sass = {}
+    with open(build.BUILD_DIR / f"probe_sass_{tag}.txt", "w") as f:
+        for name in PROBE_SOURCES:
+            summary, text = _sass_summary(build._target(name))
+            sass[name] = summary
+            f.write(f"== {name}.cu\n{logs.get(name, '')}\n{text}\n")
+    print(json.dumps({"probe": "build", "root": root, "ptxas": {
+        k: [ln.strip() for ln in v.splitlines()
+            if "registers" in ln or "spill" in ln] for k, v in logs.items()},
+        "sass": sass}), flush=True)
+    for label, name, args in _probe_cases("cuda"):
+        kern = getattr(ops, name)
+        got = kern(*args)
+        want = _plain(name)(*args)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"probe: {label} differs from the plain version")
+        bound_ms, bound_by, _, _ = _bound(name, args, got)
+        print(json.dumps({
+            "probe": label, "root": root,
+            "ms": _device_ms(lambda: kern(*args), KERNEL_FUNCS[name], reps=20),
+            "host_ms": _time_ms(lambda: kern(*args), reps=20),
+            "plain_ms": _device_ms(lambda: _plain(name)(*args), reps=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }), flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if "--probe" in sys.argv:
+        tree = sys.argv[sys.argv.index("--tree") + 1] if "--tree" in sys.argv else None
+        phase_card()
+        phase_probe(tree)
+        return 0
     if not os.path.isdir(os.path.join(ROOT, "gatekeeper_tpu_torch")):
         print("chip_smoke: gatekeeper_tpu_torch not found beside this "
               "script", file=sys.stderr)

@@ -31,9 +31,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "match": ("gk_match_matrix", [_P, _P]),
     "slab": ("gk_slab_gather", [_P, _I, _P, _I, _P, _I, _P,
-                                ctypes.c_longlong, _I, _I, _P]),
+                                ctypes.c_longlong, _I, _I, _I, _I, _I, _P]),
     "group": ("gk_egroup", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _I, ctypes.c_float, _P, _P]),
+                            _I, ctypes.c_float, _P, _I, _I, _I, _I, _I, _P]),
     "need": ("gk_need_tail", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                               _I, _P]),
     "delta": ("gk_flush_deltas", [_P, _I, _P]),

@@ -21,6 +21,7 @@ count), so a run can show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import struct
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -315,6 +316,54 @@ def slab_gather_plain(tab, ids, ov=None, v_base: int = 0):
 
 _ELEM_BYTES = {torch.bool: 1, torch.int32: 4, torch.float32: 4}
 
+# H100 limits the launch plans keep to: shared memory a block may opt in
+# to, shared memory per SM, the default a block gets without opting in,
+# and resident threads per SM
+SMEM_BLOCK_MAX = 232_448
+SMEM_PER_SM = 233_472
+SMEM_DEFAULT = 48 * 1024
+THREADS_PER_SM = 2048
+REGS_PER_SM = 65_536
+EGROUP_REGS = 40  # K3's register cap: __launch_bounds__(256, 6) in csrc/group.cu
+SLAB_THREADS = 256  # K2's block (csrc/slab.cu)
+SLAB_TILE_BYTES = 12 * 1024  # staged output per K2 tile, at most
+
+
+def _sms(device: torch.device) -> int:
+    """The card's SM count."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    return _sm_count(idx)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def slab_plan(n_tok: int, row_bytes: int, addrs: Sequence[int], sms: int):
+    """K2's launch plan for n_tok tokens of rows of `row_bytes` bytes whose
+    tables start at `addrs`: -> dict(word, tile, smem, grid).
+    word: the widest copy (16/8/4/2/1 bytes) that divides the row width
+    and every table address; tile: tokens per tile, a power of two from 16
+    to 256 whose staged rows fit SLAB_TILE_BYTES (16 tokens at least, so a
+    tile's output span stays 16-byte aligned); smem: the staged tile
+    (padded to 16) and one row pointer per token; grid: the tiles, at most
+    as many blocks as the card holds at once (each block walks tiles
+    blockIdx, blockIdx + grid, ...)."""
+    word = 16
+    while word > 1 and any(x % word for x in (row_bytes, *addrs)):
+        word //= 2
+    tile = 256
+    while tile > 16 and tile * row_bytes > SLAB_TILE_BYTES:
+        tile //= 2
+    smem = -(-tile * row_bytes // 16) * 16 + tile * 8
+    if smem > SMEM_BLOCK_MAX:
+        raise ValueError(f"slab_gather: rows of {row_bytes} bytes exceed "
+                         f"a block's shared memory ({smem} > {SMEM_BLOCK_MAX})")
+    resident = min(THREADS_PER_SM // SLAB_THREADS, SMEM_PER_SM // (smem + 1024))
+    grid = max(1, min(-(-n_tok // tile), sms * resident))
+    return {"word": word, "tile": tile, "smem": smem, "grid": grid}
+
 
 def slab_gather(tab, ids, ov=None, v_base: int = 0):
     """K2 wrapper: see slab_gather_plain."""
@@ -330,6 +379,8 @@ def slab_gather(tab, ids, ov=None, v_base: int = 0):
         if ov.dtype != tab.dtype or ov.dim() != 2 or ov.shape[1] != tab.shape[1]:
             raise ValueError("slab_gather: overlay does not match the table")
         ov = ov.contiguous()
+        if ov.shape[0] == 0:
+            raise ValueError("slab_gather: empty overlay")
     v, t = tab.shape
     out = torch.empty(
         tuple(ids.shape) + (t,), dtype=tab.dtype, device=tab.device
@@ -338,12 +389,15 @@ def slab_gather(tab, ids, ov=None, v_base: int = 0):
         return out
     if v == 0:
         raise ValueError("slab_gather: empty table")
+    addrs = [tab.data_ptr()] + ([] if ov is None else [ov.data_ptr()])
+    plan = slab_plan(ids.numel(), t * eb, addrs, _sms(tab.device))
     from .build import library
 
     lib = library("slab")
     rc = lib.gk_slab_gather(
         _ptr(tab), v, _ptr(ov), 0 if ov is None else ov.shape[0],
-        _ptr(ids), int(v_base), _ptr(out), ids.numel(), t, eb, _stream(),
+        _ptr(ids), int(v_base), _ptr(out), ids.numel(), t * eb,
+        plan["word"], plan["tile"], plan["grid"], plan["smem"], _stream(),
     )
     _check(rc, "slab_gather")
     LAUNCHES["slab_gather"] += 1
@@ -404,6 +458,41 @@ def egroup_plain(idx0, idx1, mask, val, axis: str, g0: int, g1: int,
     return torch.amax(contrib, 1)
 
 
+def egroup_plan(n: int, l: int, g: int, how: str, aligned: bool, sms: int):
+    """K3's launch plan for n rows of l tokens onto g slots: -> dict(vec,
+    lanes, warps, smem, grid). vec: 16-byte loads (every row
+    16-byte aligned: `aligned` start addresses and l % 16 == 0), else
+    scalar loads; lanes: lanes per row, the power of two that covers the
+    row's 16-token chunks two to a lane, up to 32; warps per block: 8,
+    fewer (then more lanes per row) while the rows' shared-memory slots
+    (how="any" with g <= 64 keeps none) exceed the default 48 KB; grid: the
+    blocks the rows need, at most as many as the card holds at once (each
+    warp walks its rows by the whole grid's stride)."""
+    chunks = -(-l // 16)
+    lanes = 1
+    while lanes < min(-(-chunks // 2), 32):
+        lanes *= 2
+    planes = 0 if how == "any" and g <= 64 else (2 if how == "max" else 1)
+    warps = 8
+
+    def smem():
+        return warps * (32 // lanes) * planes * g * 4
+
+    while smem() > SMEM_DEFAULT and (warps > 1 or lanes < 32):
+        if warps > 1:
+            warps //= 2
+        else:
+            lanes *= 2
+    if smem() > SMEM_BLOCK_MAX:
+        raise ValueError(f"egroup: {g} slots exceed a block's shared memory")
+    rows_per_block = warps * 32 // lanes
+    resident = min(REGS_PER_SM // (EGROUP_REGS * 32 * warps), 32,
+                   SMEM_PER_SM // (smem() + 1024))
+    grid = max(1, min(-(-n // rows_per_block), sms * resident))
+    return {"vec": aligned and l % 16 == 0, "lanes": lanes, "warps": warps,
+            "smem": smem(), "grid": grid}
+
+
 def egroup(idx0, idx1, mask, val, axis: str, g0: int, g1: int, how: str,
            init: Any = -1):
     """K3 wrapper: see egroup_plain."""
@@ -436,6 +525,10 @@ def egroup(idx0, idx1, mask, val, axis: str, g0: int, g1: int, how: str,
         return out
     acc_f32 = 1 if acc_t == torch.float32 else 0
     init_v = init if how == "max" else 0
+    read = [mask, val] + [t for t, used in (
+        (idx0, axis != "g1"), (idx1, axis != "g0")) if used]
+    plan = egroup_plan(n, l, g, how, all(t.data_ptr() % 16 == 0 for t in read),
+                       _sms(mask.device))
     from .build import library
 
     lib = library("group")
@@ -444,7 +537,8 @@ def egroup(idx0, idx1, mask, val, axis: str, g0: int, g1: int, how: str,
         int(g1), _MODE[axis], _HOW[how], acc_f32,
         int(init_v) if not acc_f32 else 0,
         ctypes.c_float(float(init_v) if acc_f32 else 0.0), _ptr(out),
-        _stream(),
+        int(plan["vec"]), plan["lanes"], plan["warps"], plan["grid"],
+        plan["smem"], _stream(),
     )
     _check(rc, "egroup")
     LAUNCHES["egroup"] += 1
