@@ -66,7 +66,9 @@ Phases, one line each on stdout, in this order:
            with idx1 past g1, K5 at unaligned fills across segments, K7 at
            ragged widths with -1 rows and a short n_valid; K2 and K3 at the
            edge widths of their launch plans and on views that start off
-           16-byte alignment).
+           16-byte alignment; K4 at the N, n_valid, R and slice edges of
+           its plan and bit layout; K1 at U = 1 and the largest U its plan
+           takes, 4 and 16 label slots, dead and live selectors mixed).
 
 The line before the last is the kernel table as one JSON object; the last
 line is {"ok": true, "device": {...}}. Any failing phase raises, and the
@@ -74,11 +76,12 @@ script exits nonzero without that line; so does a machine without CUDA.
 
     python3 chip_smoke.py --probe [--tree DIR]
 
-builds K2 and K3 alone (from DIR, another checkout of this repo, if
-given), prints their ptxas report and a SASS summary, and times them at
-the main path's shapes on seeded inputs beside their plain versions and
-bounds; the SASS listing goes beside the built kernels
-(build/gatekeeper_tpu_torch/probe_sass_*.txt).
+builds K1-K4 alone (from DIR, another checkout of this repo, if given),
+prints their ptxas report and a SASS summary, and times them at the main
+path's shapes on seeded inputs beside their plain versions and bounds,
+per __global__ function, with an empty kernel's device time (the launch
+floor) from the same profiler window; the SASS listing goes beside the
+built kernels (build/gatekeeper_tpu_torch/probe_sass_*.txt).
 """
 
 from __future__ import annotations
@@ -1863,8 +1866,8 @@ def _random_variants(device, seed: int = 7):
     not reach on the main path (K1's namespace, excluded-namespace,
     scope, namespaceSelector and labelSelector clauses over many spec
     rows; EGroup max/sum, int32/float32 values, g1/g01 axes; overlay
-    slabs of every type; a hot-row window smaller than the hot rows):
-    -> [(name, args, kwargs)]."""
+    slabs of every type; a hot-row window smaller than the hot rows; the
+    K2, K3, K4 and K1 plan edges): -> [(name, args, kwargs)]."""
     import numpy as np
     import torch
 
@@ -1919,6 +1922,8 @@ def _random_variants(device, seed: int = 7):
     for r_cap in (64, 1024, 8192):
         out.append(("need_tail", (match_u, spec_map, viol, compiled, row_fb,
                                   n2 - 77, r_cap), {}))
+    out += _need_edge_variants(r, t)
+    out += _match_edge_variants(r, t)
     # K6: g0 and g01 (idx1 >= g1 runs into the next element, idx -1 and
     # idx >= G take the default) over every value type
     n, l, g0, g1 = 4096, 96, 16, 8
@@ -1959,6 +1964,105 @@ def _random_variants(device, seed: int = 7):
         crow = r.integers(-1, cc + 2, c).astype(np.int32) if cc else np.full(
             c, -1, np.int32)
         out.append(("full_totals", (match, counts, t(crow), n - cut), {}))
+    return out
+
+
+def _need_edge_variants(r, t):
+    """K4 at the edges of its plan and bit layout: N = 1, 15, 17, 31, 33
+    and 32768 (tails of the 16-review loads and of the 32-bit row-any
+    words), n_valid = 0, 1, N - 1 and N, R = 1 and R = N (hot slots in
+    several 4096-slot chunks; R not a multiple of 32, so packed words
+    straddle need rows), C_pad not a multiple of the constraint slice nor
+    of the 4-constraint unroll, n_hot > R; and all constraints
+    interpreter-only, all rows fallbacks, views off 16-byte alignment
+    (byte loads), few hot rows."""
+    out = []
+    for n in (1, 15, 17, 31, 33, 32768):
+        c = 503 if n == 32768 else 37
+        for n_valid in sorted({0, 1, n - 1, n}):
+            for r_cap in sorted({1, n}):
+                out.append(("need_tail", _need_case(
+                    r, t, c, n, match=0.8, viol=0.3, fb=0.05, interp=0.1,
+                    n_valid=n_valid, r_cap=r_cap), {}))
+    for c, n, r_cap, kw in (
+        (1001, 33, 7, {}), (61, 4099, 33, {}), (2999, 32768, 1024, {}),
+        (37, 1000, 1000, {"interp": 1.0}), (37, 1000, 64, {"fb": 1.0}),
+        (503, 32768, 8193, {"viol": 0.00002, "match": 0.7, "fb": 0.0,
+                            "interp": 0.0}),
+    ):
+        out.append(("need_tail", _need_case(r, t, c, n, r_cap=r_cap, **kw),
+                    {}))
+    args = _need_case(r, lambda a: a, 503, 32768, match=0.8, viol=0.3,
+                      fb=0.05, n_valid=32700)
+    out.append(("need_tail", (
+        _offset_view(t, args[0], 1), t(args[1]), _offset_view(t, args[2], 3),
+        t(args[3]), _offset_view(t, args[4], 5)) + args[5:], {}))
+    return out
+
+
+def match_max_u(per_spec_words: int, ml: int, ml2: int, reads: int) -> int:
+    """The largest spec count K1's plan takes for specs of
+    `per_spec_words` words each (flags included) over reviews of ml / ml2
+    label slots, with the review arrays `reads` names."""
+    from gatekeeper_tpu_torch.kernels import ops
+
+    def fits(u):
+        try:
+            ops.match_plan(1, u, u * per_spec_words, ml, ml2, reads, 132)
+        except ValueError:
+            return False
+        return True
+
+    lo, hi = 1, ops.SMEM_BLOCK_MAX // 4 // per_spec_words + 1
+    while lo + 1 < hi:  # fits(lo), not fits(hi)
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def _match_edge_variants(r, t):
+    """K1 at U = 1 and at the largest U its plan allows, ML = 4 and 16,
+    over seeded batteries whose rows mix dead and live selectors; the
+    kinds-only spec set (every selector dead: 4 reviews a thread) at N not
+    a multiple of 4, with drawn scopes, and on feature views off
+    alignment."""
+    import numpy as np
+
+    from gatekeeper_tpu_torch.kernels import ops
+
+    out = []
+
+    def cuda(ms, fb):
+        return ({k: t(a) for k, a in ms.items()},
+                {k: t(a) for k, a in fb.items()})
+
+    for ml in (4, 16):
+        probe, _ = _match_battery(900 + ml, 2, 4, ml, False)
+        per = sum(a[0].size for k, a in probe.items()
+                  if k in ops._MS_STAGED) + 1
+        reads = ops.R_OBJ | ops.R_NSLAB | ops.R_NS | ops.R_NSSEL
+        u_max = match_max_u(per, ml, ml, reads)
+        for u, n in ((1, 4099), (u_max, 2053)):
+            ms, fb = _match_battery(910 + ml + u, u, n, ml, False)
+            flags, got = ops.match_flags(ms)
+            if u > 1 and not (flags & ops.F_LAB_LIVE).any():
+                raise AssertionError("match edge: no live selector")
+            if u == u_max and got == reads:
+                with_one_more = (u + 1) * per
+                try:
+                    ops.match_plan(n, u + 1, with_one_more, ml, ml, got, 132)
+                except ValueError:
+                    pass
+                else:
+                    raise AssertionError(f"match edge: U {u} is not the largest")
+            out.append(("match_matrix", cuda(ms, fb), {}))
+    for n, scopes in ((4099, False), (4097, True)):
+        out.append(("match_matrix", cuda(*_kinds_only_specs(
+            r, 3, n, 8, scopes)), {}))
+    ms, fb = _kinds_only_specs(r, 5, 4096, 4, True)
+    dev_fb = {k: _offset_view(t, a, 1) for k, a in fb.items()}
+    out.append(("match_matrix", ({k: t(a) for k, a in ms.items()}, dev_fb),
+                {}))
     return out
 
 
@@ -2169,12 +2273,14 @@ def phase_kernels(rec, launches):
             "timed_shape": [list(out_k.shape), str(out_k.dtype), str(key)],
             "variants_checked": len(calls),
         })
+        if name == "need_tail":  # the timed input's n_hot and pair counts
+            rows[-1]["n_hot_sc_si"] = out_k[-3:].tolist()
     return rows
 
 
-# -- probe: K2 and K3 alone (python3 chip_smoke.py --probe [--tree DIR]) ------
+# -- probe: K1-K4 alone (python3 chip_smoke.py --probe [--tree DIR]) ---------
 
-PROBE_SOURCES = ("slab", "group")
+PROBE_SOURCES = ("slab", "group", "need", "match")
 
 
 def _sass_summary(lib):
@@ -2211,11 +2317,74 @@ def _sass_summary(lib):
     return out, text
 
 
+def _kinds_only_specs(r, u: int, n: int, ml: int, scopes: bool = False):
+    """A spec set in the shape the in-repo policies compile to (kinds
+    only: every other selector part padded with -1 / False, as
+    compile_match_specs pads, so every selector is dead) over reviews
+    with `ml` label slots; `scopes` draws each row's scope code. -> (ms,
+    fb) as numpy arrays."""
+    import numpy as np
+
+    def pad(*shape):
+        return np.full(shape, -1, np.int32)
+
+    kind = r.integers(0, 6, (u, 2, 2)).astype(np.int32)
+    kind[:, 1] = -1  # a second, padded kind row
+    ms = {
+        "kind_rows": kind, "ns_has": np.zeros(u, bool), "ns_ids": pad(u, 1),
+        "excl_has": np.zeros(u, bool), "excl_ids": pad(u, 1),
+        "scope": (r.integers(0, 4, u) if scopes else np.zeros(u)).astype(np.int32),
+        "lab_invalid": np.zeros(u, bool), "lab_ml": pad(u, 1, 2),
+        "lab_expr": pad(u, 1, 3), "lab_expr_vals": pad(u, 1, 1),
+        "nssel_has": np.zeros(u, bool), "nssel_matches_empty": np.zeros(u, bool),
+        "nssel_invalid": np.zeros(u, bool), "nssel_ml": pad(u, 1, 2),
+        "nssel_expr": pad(u, 1, 3), "nssel_expr_vals": pad(u, 1, 1),
+    }
+    lab = r.integers(0, 40, (n, ml, 2)).astype(np.int32)
+    lab[r.random((n, ml)) < 0.5] = -1
+    fb = {
+        "group_id": r.integers(-1, 6, n).astype(np.int32),
+        "kind_id": r.integers(-1, 6, n).astype(np.int32),
+        "kind_defined": r.random(n) < 0.9, "is_ns": r.random(n) < 0.01,
+        "has_namespace": r.random(n) < 0.95,
+        "ns_name_id": r.integers(-1, 50, n).astype(np.int32),
+        "obj_present": np.ones(n, bool), "old_present": np.zeros(n, bool),
+        "obj_labels": lab, "old_labels": np.full((n, ml, 2), -1, np.int32),
+        "nssel_defined": r.random(n) < 0.9,
+        "nssel_labels": np.full((n, ml, 2), -1, np.int32),
+        "nssel_empty": np.zeros(n, bool),
+    }
+    return ms, fb
+
+
+def _need_case(r, t, c, n, u=5, match=0.99, viol=0.1, fb=0.001,
+               interp=0.02, n_valid=None, r_cap=1024):
+    """K4 arguments on seeded inputs: `match` of the pairs matched (a
+    spec row per constraint from u rows), `viol` of them violating, `fb`
+    of the rows routed to the interpreter, `interp` of the constraints
+    interpreter-only."""
+    import numpy as np
+
+    match_u = r.random((u, n)) < match
+    spec_map = r.integers(0, u, c).astype(np.int32)
+    compiled = r.random(c) >= interp
+    return (t(match_u), t(spec_map), t(r.random((c, n)) < viol),
+            t(compiled), t(r.random(n) < fb),
+            n if n_valid is None else n_valid, r_cap)
+
+
 def _probe_cases(device):
-    """K2 and K3 at the main path's timed shapes, on seeded synthetic
-    inputs: [32768, 128] tokens, a [100160, 44] bool table (with and
-    without a 256-row overlay); EGroup onto g01 = 16 x 4 slots, at the
-    main path's live-token share (0.27%), at 12% and at half."""
+    """K1-K4 at the main path's timed shapes, on seeded synthetic inputs:
+    K2 [32768, 128] tokens of a [100160, 44] bool table (with and without
+    a 256-row overlay); K3 onto g01 = 16 x 4 slots, at the main path's
+    live-token share (0.27%), at 12% and at half; K4 at C 500 x N 32768,
+    R 1024 at the main path's shares (every pair matched and compiled,
+    about 1% of the rows hot: the recorded input's n_hot and pair counts,
+    PERF.md), with 99% matched and every row hot (n_hot > R), and dense;
+    K1 on the kinds-only spec set at [3, 100000] and on a label-heavy
+    battery at [64, 100000] with 16 label slots (namespaces, excluded
+    namespaces, matchLabels, all five expression ops, namespaceSelector,
+    object and oldObject)."""
     import numpy as np
     import torch
 
@@ -2236,7 +2405,7 @@ def _probe_cases(device):
     mid = t(r.random((n, l)) < 0.12)
     dense = t(r.random((n, l)) < 0.5)
     ints = t(r.integers(-3, 900, (n, l)).astype(np.int32))
-    return [
+    cases = [
         ("k2 [32768,128,44] bool", "slab_gather", (tab, ids, None, 0)),
         ("k2 [32768,128,44] bool overlay", "slab_gather",
          (tab, ids_ov, ov, v)),
@@ -2246,15 +2415,86 @@ def _probe_cases(device):
          (idx0, idx1, mid, mid, "g01", g0, g1, "any", -1)),
         ("k3 [32768,64] g01 max int32, 50% live", "egroup",
          (idx0, idx1, dense, ints, "g01", g0, g1, "max", -1)),
+        ("k4 [500,32768] R 1024, main shares", "need_tail",
+         _need_case(r, t, 500, n, match=1.0, viol=0.00002, fb=0.0,
+                    interp=0.0)),
+        ("k4 [500,32768] R 1024, every row hot", "need_tail",
+         _need_case(r, t, 500, n, n_valid=n - 77)),
+        ("k4 [500,32768] R 1024, dense", "need_tail",
+         _need_case(r, t, 500, n, match=1.0, viol=0.5, fb=0.05)),
     ]
+    ms, fb = _kinds_only_specs(r, 3, 100_000, 8)
+    cases.append(("k1 [3,100000] kinds only", "match_matrix",
+                  ({k: t(a) for k, a in ms.items()},
+                   {k: t(a) for k, a in fb.items()})))
+    ms, fb = _match_battery(44, 64, 100_000, 16)
+    cases.append(("k1 [64,100000] label battery, ML 16", "match_matrix",
+                  ({k: t(a) for k, a in ms.items()},
+                   {k: t(a) for k, a in fb.items()})))
+    return cases
+
+
+def _empty_kernel():
+    """The empty kernel of this checkout's csrc/empty.cu, built apart from
+    the probed tree: -> fn() launching it once (one block of 32 threads)."""
+    import ctypes
+
+    import torch
+    from gatekeeper_tpu_torch.kernels import build
+
+    src = os.path.join(ROOT, "gatekeeper_tpu_torch", "kernels", "csrc",
+                       "empty.cu")
+    out = os.path.join(str(build.BUILD_DIR), "probe_empty.so")
+    os.makedirs(str(build.BUILD_DIR), exist_ok=True)
+    subprocess.run([build.nvcc(), "-gencode", build.ARCH, "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", out, src],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(out)
+    lib.gk_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gk_empty.restype = ctypes.c_int
+
+    def launch():
+        rc = lib.gk_empty(1, 32, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"empty kernel: cudaError {rc}")
+
+    return launch
+
+
+def _device_split(fn, kernels, reps: int = 20):
+    """Device ms per call of each named kernel (torch.profiler), each
+    launched once per call of fn; a profile missing records is taken
+    again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _window_head()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        got, seen = {}, {}
+        for e in prof.key_averages():
+            name = _kernel_name(e)
+            if name in kernels:
+                got[name] = got.get(name, 0.0) + _device_time_us(e) / 1e3 / reps
+                seen[name] = seen.get(name, 0) + e.count
+        if all(seen.get(k, 0) == reps for k in kernels):
+            return got
+    raise AssertionError(f"profiler recorded {seen} for {kernels} over {reps}")
 
 
 def phase_probe(tree=None):
-    """Build K2 and K3 from `tree` (a checkout of this repo; default this
-    one), report ptxas registers and spills, the SASS instruction count
-    and subroutine calls of each kernel, and time each kernel at the main
-    path's shapes beside its plain version and its bound. The full SASS
-    listing goes to probe_sass_<tag>.txt in the kernels' build directory."""
+    """Build K1-K4 from `tree` (a checkout of this repo; default this one),
+    report ptxas registers and spills, the SASS instruction count and
+    subroutine calls of each kernel, and time each kernel at the main
+    path's shapes beside its plain version and its bound: per __global__
+    function, with an empty kernel's device time (the launch floor)
+    measured in the same profiler window. The full SASS listing goes to
+    probe_sass_<tag>.txt in the kernels' build directory."""
     import torch
 
     root = os.path.abspath(tree or ROOT)
@@ -2275,8 +2515,10 @@ def phase_probe(tree=None):
             f.write(f"== {name}.cu\n{logs.get(name, '')}\n{text}\n")
     print(json.dumps({"probe": "build", "root": root, "ptxas": {
         k: [ln.strip() for ln in v.splitlines()
-            if "registers" in ln or "spill" in ln] for k, v in logs.items()},
+            if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        for k, v in logs.items()},
         "sass": sass}), flush=True)
+    empty = _empty_kernel()
     for label, name, args in _probe_cases("cuda"):
         kern = getattr(ops, name)
         got = kern(*args)
@@ -2285,13 +2527,23 @@ def phase_probe(tree=None):
         if got.dtype != want.dtype or not torch.equal(got, want):
             raise AssertionError(f"probe: {label} differs from the plain version")
         bound_ms, bound_by, _, _ = _bound(name, args, got)
-        print(json.dumps({
+
+        def both():
+            kern(*args)
+            empty()
+
+        split = _device_split(both, KERNEL_FUNCS[name] + ("empty_kernel",))
+        floor = split.pop("empty_kernel")
+        row = {
             "probe": label, "root": root,
-            "ms": _device_ms(lambda: kern(*args), KERNEL_FUNCS[name], reps=20),
+            "ms": sum(split.values()), "split_ms": split, "floor_ms": floor,
             "host_ms": _time_ms(lambda: kern(*args), reps=20),
             "plain_ms": _device_ms(lambda: _plain(name)(*args), reps=3),
             "bound_ms": bound_ms, "bound_by": bound_by,
-        }), flush=True)
+        }
+        if name == "need_tail":
+            row["n_hot_sc_si"] = got[-3:].tolist()
+        print(json.dumps(row), flush=True)
 
 
 def main() -> int:

@@ -29,16 +29,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the entry points (every pointer and the stream as void*)
 _SIGNATURES = {
-    "match": ("gk_match_matrix", [_P, _P]),
+    "match": ("gk_match_matrix", [_P, _P, _P]),
     "slab": ("gk_slab_gather", [_P, _I, _P, _I, _P, _I, _P,
                                 ctypes.c_longlong, _I, _I, _I, _I, _I, _P]),
     "group": ("gk_egroup", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, ctypes.c_float, _P, _I, _I, _I, _I, _I, _P]),
-    "need": ("gk_need_tail", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                              _I, _P]),
+    "need": ("gk_need_tail", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "delta": ("gk_flush_deltas", [_P, _I, _P]),
     "gather": ("gk_gather_elem", [_P, _I, _P, _P, _I, _I, ctypes.c_uint,
                                   _P, ctypes.c_longlong, _I, _I, _P]),
+    "empty": ("gk_empty", [_I, _I, _P]),  # the launch floor (probe only)
     "totals": ("gk_full_totals", [_P, _P, _I, _P, _I, ctypes.c_longlong,
                                   ctypes.c_longlong, _P, _P]),
 }

@@ -22,7 +22,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import operator
 import struct
+import threading
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -101,14 +103,6 @@ _MS_I32 = (
 _MS_BOOL = (
     "ns_has", "excl_has", "lab_invalid", "nssel_has",
     "nssel_matches_empty", "nssel_invalid",
-)
-_FB_I32 = (
-    "group_id", "kind_id", "ns_name_id", "obj_labels", "old_labels",
-    "nssel_labels",
-)
-_FB_BOOL = (
-    "kind_defined", "is_ns", "has_namespace", "obj_present", "old_present",
-    "nssel_defined", "nssel_empty",
 )
 
 
@@ -215,86 +209,245 @@ def match_matrix_plain(ms: Dict[str, torch.Tensor], fb: Dict[str, torch.Tensor])
     return kind_ok & ns_ok & excl_ok & scope_ok & nssel_ok & label_ok
 
 
-class _MatchArgs(ctypes.Structure):
-    # mirrors struct MatchArgs in csrc/match.cu field for field
+class _MatchSpecArgs(ctypes.Structure):
+    # mirrors struct MatchSpec in csrc/match.cu field for field
     _fields_ = [
-        ("kind_rows", ctypes.c_void_p), ("K", ctypes.c_int),
-        ("ns_has", ctypes.c_void_p), ("ns_ids", ctypes.c_void_p),
-        ("M", ctypes.c_int),
-        ("excl_has", ctypes.c_void_p), ("excl_ids", ctypes.c_void_p),
-        ("M2", ctypes.c_int),
-        ("scope", ctypes.c_void_p),
-        ("lab_invalid", ctypes.c_void_p), ("lab_ml", ctypes.c_void_p),
-        ("P", ctypes.c_int), ("lab_expr", ctypes.c_void_p),
-        ("E", ctypes.c_int), ("lab_vals", ctypes.c_void_p),
-        ("V", ctypes.c_int),
-        ("nssel_has", ctypes.c_void_p),
-        ("nssel_matches_empty", ctypes.c_void_p),
-        ("nssel_invalid", ctypes.c_void_p), ("nssel_ml", ctypes.c_void_p),
-        ("P2", ctypes.c_int), ("nssel_expr", ctypes.c_void_p),
-        ("E2", ctypes.c_int), ("nssel_vals", ctypes.c_void_p),
-        ("V2", ctypes.c_int),
-        ("group_id", ctypes.c_void_p), ("kind_id", ctypes.c_void_p),
-        ("kind_defined", ctypes.c_void_p), ("is_ns", ctypes.c_void_p),
-        ("has_namespace", ctypes.c_void_p), ("ns_name_id", ctypes.c_void_p),
-        ("obj_present", ctypes.c_void_p), ("old_present", ctypes.c_void_p),
-        ("obj_labels", ctypes.c_void_p), ("old_labels", ctypes.c_void_p),
-        ("ML", ctypes.c_int),
-        ("nssel_defined", ctypes.c_void_p), ("nssel_labels", ctypes.c_void_p),
-        ("ML2", ctypes.c_int), ("nssel_empty", ctypes.c_void_p),
-        ("out", ctypes.c_void_p), ("U", ctypes.c_int), ("N", ctypes.c_int),
+        *((k, ctypes.c_void_p) for k in (
+            "kind_rows", "ns_ids", "excl_ids", "lab_ml", "lab_expr",
+            "lab_vals", "nssel_ml", "nssel_expr", "nssel_vals", "flags")),
+        *((k, ctypes.c_int) for k in (
+            "U", "K", "M", "M2", "P", "E", "V", "P2", "E2", "V2", "reads")),
     ]
 
 
-def match_matrix(ms: Dict[str, torch.Tensor], fb: Dict[str, torch.Tensor]):
-    """K1 wrapper: [U, N] bool match matrix."""
-    if not _on_cuda(*ms.values(), *fb.values()):
-        return match_matrix_plain(ms, fb)
-    m = {k: _need(ms[k], torch.int32, ms[k].dim(), k) for k in _MS_I32}
-    m.update({k: _need(ms[k], torch.bool, 1, k) for k in _MS_BOOL})
-    f = {k: _need(fb[k], torch.int32, fb[k].dim(), k) for k in _FB_I32}
-    f.update({k: _need(fb[k], torch.bool, 1, k) for k in _FB_BOOL})
-    u = m["kind_rows"].shape[0]
-    n = f["group_id"].shape[0]
-    out = torch.empty((u, n), dtype=torch.bool, device=f["group_id"].device)
-    if u == 0 or n == 0:
-        return out
-    a = _MatchArgs(
-        kind_rows=_ptr(m["kind_rows"]), K=m["kind_rows"].shape[1],
-        ns_has=_ptr(m["ns_has"]), ns_ids=_ptr(m["ns_ids"]),
-        M=m["ns_ids"].shape[1],
-        excl_has=_ptr(m["excl_has"]), excl_ids=_ptr(m["excl_ids"]),
-        M2=m["excl_ids"].shape[1],
-        scope=_ptr(m["scope"]),
-        lab_invalid=_ptr(m["lab_invalid"]), lab_ml=_ptr(m["lab_ml"]),
-        P=m["lab_ml"].shape[1], lab_expr=_ptr(m["lab_expr"]),
-        E=m["lab_expr"].shape[1], lab_vals=_ptr(m["lab_expr_vals"]),
-        V=m["lab_expr_vals"].shape[2],
-        nssel_has=_ptr(m["nssel_has"]),
-        nssel_matches_empty=_ptr(m["nssel_matches_empty"]),
-        nssel_invalid=_ptr(m["nssel_invalid"]), nssel_ml=_ptr(m["nssel_ml"]),
-        P2=m["nssel_ml"].shape[1], nssel_expr=_ptr(m["nssel_expr"]),
-        E2=m["nssel_expr"].shape[1], nssel_vals=_ptr(m["nssel_expr_vals"]),
-        V2=m["nssel_expr_vals"].shape[2],
-        group_id=_ptr(f["group_id"]), kind_id=_ptr(f["kind_id"]),
-        kind_defined=_ptr(f["kind_defined"]), is_ns=_ptr(f["is_ns"]),
-        has_namespace=_ptr(f["has_namespace"]),
-        ns_name_id=_ptr(f["ns_name_id"]),
-        obj_present=_ptr(f["obj_present"]),
-        old_present=_ptr(f["old_present"]),
-        obj_labels=_ptr(f["obj_labels"]), old_labels=_ptr(f["old_labels"]),
-        ML=f["obj_labels"].shape[1],
-        nssel_defined=_ptr(f["nssel_defined"]),
-        nssel_labels=_ptr(f["nssel_labels"]),
-        ML2=f["nssel_labels"].shape[1], nssel_empty=_ptr(f["nssel_empty"]),
-        out=_ptr(out), U=u, N=n,
+# review arrays in the order of struct MatchReview, with their dtype, their
+# number of dims and the alignment their vector loads need
+_FB_ORDER = (
+    ("group_id", torch.int32, 1, 16), ("kind_id", torch.int32, 1, 16),
+    ("ns_name_id", torch.int32, 1, 16), ("kind_defined", torch.bool, 1, 4),
+    ("is_ns", torch.bool, 1, 4), ("has_namespace", torch.bool, 1, 4),
+    ("obj_present", torch.bool, 1, 4), ("old_present", torch.bool, 1, 4),
+    ("obj_labels", torch.int32, 3, 16), ("old_labels", torch.int32, 3, 16),
+    ("nssel_defined", torch.bool, 1, 4), ("nssel_labels", torch.int32, 3, 16),
+    ("nssel_empty", torch.bool, 1, 4),
+)
+
+
+class _MatchReview(ctypes.Structure):
+    # mirrors struct MatchReview in csrc/match.cu field for field
+    _fields_ = [
+        *((k, ctypes.c_void_p) for k, *_ in _FB_ORDER), ("out", ctypes.c_void_p),
+        *((k, ctypes.c_int) for k in (
+            "ML", "ML2", "N", "rpt", "sg", "threads", "grid", "smem", "vec")),
+    ]
+
+
+# per-spec flags and review-array read bits (csrc/match.cu)
+F_NS_HAS, F_EXCL_HAS, F_SCOPE_NS, F_SCOPE_CL = 1, 2, 4, 8
+F_NSSEL_HAS, F_NSSEL_EMPTY, F_NSSEL_LIVE, F_NSSEL_CONST = 16, 32, 64, 128
+F_LAB_LIVE, F_LAB_CONST = 256, 512
+R_NS, R_NSSEL, R_OBJ, R_NSLAB = 1, 2, 4, 8
+_LABEL_OPS = (OP_IN, OP_NOT_IN, OP_EXISTS, OP_NOT_EXISTS)
+# spec arrays in the kernel's staging order (flags follow them)
+_MS_STAGED = (
+    "kind_rows", "ns_ids", "excl_ids", "lab_ml", "lab_expr", "lab_expr_vals",
+    "nssel_ml", "nssel_expr", "nssel_expr_vals",
+)
+MATCH_THREADS = 128  # K1's block, at most (csrc/match.cu)
+
+
+def _selector_liveness(invalid, ml, expr):
+    """(live [U], const [U]) of one LabelSelector per spec row: live when
+    valid, without an ALWAYS_VIOLATED expression, and with a matchLabels
+    pair or a label-reading expression; a selector that is not live has
+    the answer `const` for every review (valid and never violated)."""
+    always_v = (expr[:, :, 1] == OP_ALWAYS_VIOLATED).any(1)
+    reads = (ml[:, :, 0] != -1).any(1) | np.isin(expr[:, :, 1], _LABEL_OPS).any(1)
+    const = ~invalid & ~always_v
+    return const & reads, const
+
+
+def match_flags(ms: Dict[str, np.ndarray]):
+    """-> (flags [U] int32, reads int): K1's per-spec flags and the review
+    arrays some spec reads, from host copies of the spec arrays."""
+    sc = ms["scope"]
+    scope_ns = np.isin(sc, (SCOPE_ABSENT, SCOPE_STAR, SCOPE_NAMESPACED))
+    scope_cl = np.isin(sc, (SCOPE_ABSENT, SCOPE_STAR, SCOPE_CLUSTER))
+    lab_live, lab_const = _selector_liveness(
+        ms["lab_invalid"], ms["lab_ml"], ms["lab_expr"])
+    ns_live, ns_const = _selector_liveness(
+        ms["nssel_invalid"], ms["nssel_ml"], ms["nssel_expr"])
+    nssel = ms["nssel_has"].astype(bool)
+    ns_live &= nssel
+    bits = (
+        (ms["ns_has"], F_NS_HAS), (ms["excl_has"], F_EXCL_HAS),
+        (scope_ns, F_SCOPE_NS), (scope_cl, F_SCOPE_CL),
+        (nssel, F_NSSEL_HAS), (ms["nssel_matches_empty"], F_NSSEL_EMPTY),
+        (ns_live, F_NSSEL_LIVE), (ns_const, F_NSSEL_CONST),
+        (lab_live, F_LAB_LIVE), (lab_const, F_LAB_CONST),
     )
-    if f["old_labels"].shape[1] != a.ML:
+    flags = np.zeros(sc.shape, np.int32)
+    for on, bit in bits:
+        flags |= np.where(np.asarray(on, bool), bit, 0).astype(np.int32)
+    reads = 0
+    if (ms["ns_has"].any() or ms["excl_has"].any() or nssel.any()
+            or (scope_ns != scope_cl).any()):
+        reads |= R_NS
+    if nssel.any():
+        reads |= R_NSSEL
+    if lab_live.any() or ns_live.any():
+        reads |= R_OBJ
+    if ns_live.any():
+        reads |= R_NSLAB
+    return flags, reads
+
+
+def match_plan(n: int, u: int, spec_words: int, ml: int, ml2: int,
+               reads: int, sms: int):
+    """K1's launch plan for n reviews against u staged specs of
+    `spec_words` int32 words in all (flags included): -> dict(rpt, sg,
+    threads, tile, grid, smem). sg: groups of a block's threads that split
+    the specs (the largest power of two up to u / 8, at most 8), so a
+    thread runs at least 8 specs; the other threads / sg take a review slot
+    each. Without staged labels a slot is 4 reviews; with them (R_OBJ /
+    R_NSLAB), one, and the block shrinks from 128 to 64 or 32 threads
+    while the slots' label rows (stride 2 * ML + 1 words) and the spec set
+    exceed a block's shared memory. Past 48 KB the kernel opts in; past
+    SMEM_BLOCK_MAX the plan raises."""
+    staged = (2 * (2 * ml + 1) if reads & R_OBJ else 0) + (
+        (2 * ml2 + 1) if reads & R_NSLAB else 0)
+    rpt = 1 if staged else 4
+    sg = 1
+    while sg < 8 and 2 * sg * 8 <= u:
+        sg *= 2
+    threads = MATCH_THREADS
+
+    def smem():
+        return 4 * (spec_words + threads // sg * rpt * staged)
+
+    while smem() > SMEM_BLOCK_MAX and threads > 32:
+        threads //= 2
+    if smem() > SMEM_BLOCK_MAX:
+        raise ValueError(
+            f"match_matrix: {spec_words} spec words and label rows of "
+            f"{ml}/{ml2} exceed a block's shared memory ({smem()} > "
+            f"{SMEM_BLOCK_MAX})")
+    tile = threads // sg * rpt
+    grid = max(1, -(-n // tile))
+    if grid > 2**31 - 1:
+        raise ValueError(f"match_matrix: {n} reviews exceed the grid")
+    return {"rpt": rpt, "sg": sg, "threads": threads, "tile": tile,
+            "grid": grid, "smem": smem()}
+
+
+class _MatchSpec:
+    """The spec half of one K1 launch, built once per staged spec set:
+    the checked contiguous spec tensors, the flags tensor, the filled
+    MatchSpec struct and the plans by review shape."""
+
+    def __init__(self, ms: Dict[str, torch.Tensor]):
+        m = {k: _need(ms[k], torch.int32, ms[k].dim(), k) for k in _MS_I32}
+        m.update({k: _need(ms[k], torch.bool, 1, k) for k in _MS_BOOL})
+        _on_cuda(*m.values())  # one device for every spec tensor
+        host = {k: v.cpu().numpy() for k, v in m.items()}
+        flags, self.reads = match_flags(host)
+        dev = m["kind_rows"].device
+        self.index = dev.index
+        self.tensors = m  # held: `args` points into them
+        self.flags = torch.from_numpy(flags).to(dev)
+        u = m["kind_rows"].shape[0]
+        self.u = u
+        self.device = dev
+        self.spec_words = u + sum(m[k][0].numel() for k in _MS_STAGED) * u
+        self.plans: Dict[tuple, dict] = {}
+        self.args = _MatchSpecArgs(
+            kind_rows=_ptr(m["kind_rows"]), ns_ids=_ptr(m["ns_ids"]),
+            excl_ids=_ptr(m["excl_ids"]), lab_ml=_ptr(m["lab_ml"]),
+            lab_expr=_ptr(m["lab_expr"]), lab_vals=_ptr(m["lab_expr_vals"]),
+            nssel_ml=_ptr(m["nssel_ml"]), nssel_expr=_ptr(m["nssel_expr"]),
+            nssel_vals=_ptr(m["nssel_expr_vals"]), flags=_ptr(self.flags),
+            reads=self.reads, U=u, K=m["kind_rows"].shape[1],
+            M=m["ns_ids"].shape[1], M2=m["excl_ids"].shape[1],
+            P=m["lab_ml"].shape[1], E=m["lab_expr"].shape[1],
+            V=m["lab_expr_vals"].shape[2], P2=m["nssel_ml"].shape[1],
+            E2=m["nssel_expr"].shape[1], V2=m["nssel_expr_vals"].shape[2],
+        )
+
+    def plan(self, n: int, ml: int, ml2: int, sms: int) -> dict:
+        key = (n, ml, ml2, sms)
+        got = self.plans.get(key)
+        if got is None:
+            got = self.plans[key] = match_plan(
+                n, self.u, self.spec_words, ml, ml2, self.reads, sms)
+        return got
+
+
+_MATCH_SPECS: "Dict[tuple, tuple]" = {}
+_MATCH_SPECS_MAX = 8
+_match_lock = threading.Lock()
+_MS_GET = operator.itemgetter(*(_MS_I32 + _MS_BOOL))
+_VERSION = operator.attrgetter("_version")
+
+
+def _match_spec(ms: Dict[str, torch.Tensor]) -> _MatchSpec:
+    """The cached spec half for this spec set, keyed by the identity of
+    each spec tensor. An entry holds its tensors (so no other tensor takes
+    their ids while it lives) and their version counters: a tensor edited
+    in place (its version moves) or replaced by another (its id differs)
+    builds a new entry."""
+    src = _MS_GET(ms)
+    key = tuple(map(id, src))
+    versions = tuple(map(_VERSION, src))
+    with _match_lock:
+        hit = _MATCH_SPECS.get(key)
+    if hit is not None and hit[1] == versions:
+        return hit[2]
+    spec = _MatchSpec(ms)
+    with _match_lock:
+        _MATCH_SPECS.pop(key, None)
+        if len(_MATCH_SPECS) >= _MATCH_SPECS_MAX:
+            _MATCH_SPECS.pop(next(iter(_MATCH_SPECS)))
+        _MATCH_SPECS[key] = (src, versions, spec)
+    return spec
+
+
+def match_matrix(ms: Dict[str, torch.Tensor], fb: Dict[str, torch.Tensor]):
+    """K1 wrapper: [U, N] bool match matrix. The spec half of the launch
+    is built once per staged spec set (_match_spec); a call checks and
+    passes only the review half."""
+    if not _on_cuda(ms["kind_rows"], fb["group_id"]):
+        return match_matrix_plain(ms, fb)
+    spec = _match_spec(ms)
+    ts, ptrs, vec = [], [], True
+    for k, dtype, ndim, align in _FB_ORDER:
+        t = fb[k]
+        if not t.is_cuda:
+            raise ValueError(f"match_matrix: {k} is not on the card")
+        if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+            t = _need(t, dtype, ndim, k)
+        p = t.data_ptr()
+        vec = vec and p % align == 0  # int4 / 4-byte feature loads
+        ts.append(t)
+        ptrs.append(p)
+    if ts[0].get_device() != spec.index:
+        raise ValueError("match_matrix: specs and features on different devices")
+    n = ts[0].shape[0]
+    out = torch.empty((spec.u, n), dtype=torch.bool, device=spec.device)
+    if spec.u == 0 or n == 0:
+        return out
+    ml, ml2 = ts[8].shape[1], ts[11].shape[1]
+    if ts[9].shape[1] != ml:
         raise ValueError("obj_labels and old_labels differ in width")
+    plan = spec.plan(n, ml, ml2, _sm_count(spec.index))
+    review = _MatchReview(
+        *ptrs, out.data_ptr(), ml, ml2, n, plan["rpt"], plan["sg"],
+        plan["threads"], plan["grid"], plan["smem"], int(vec),
+    )
     from .build import library
 
     lib = library("match")
-    _check(lib.gk_match_matrix(ctypes.addressof(a), _stream()), "match_matrix")
+    _check(lib.gk_match_matrix(ctypes.byref(spec.args), ctypes.byref(review),
+                               _stream()), "match_matrix")
     LAUNCHES["match_matrix"] += 1
     return out
 
@@ -601,6 +754,56 @@ def need_tail_plain(match_u, spec_map, viol, compiled, row_fb, n_valid: int,
     ])
 
 
+NEED_THREADS = 256  # K4's pass-1 and pass-3 blocks (csrc/need.cu)
+NEED_RPT = 16  # reviews per pass-1 thread: one 16-byte load per row
+NEED_TILE = NEED_THREADS * NEED_RPT
+NEED_MAX_CS = 256  # constraints per pass-1 slice, at most
+NEED_PACK_JC = 4096  # hot slots a pass-3 block stages, at most
+NEED_MAX_CR = 1024  # need rows per pass-3 block, at most
+GRID_Y_MAX = 65_535
+
+
+def need_plan(c_pad: int, n: int, r: int, addrs: Sequence[int], sms: int):
+    """K4's launch plan for a [c_pad, n] chunk with r hot slots:
+    -> dict(cs, g1, jc, cr, g3, smem3, vec, words).
+    Pass 1: a grid g1 = (review tiles of NEED_TILE, constraint slices of cs)
+    of about two blocks per SM; vec: 16-byte loads (n % 16 == 0 and every
+    row array 16-byte aligned at `addrs`), else byte loads. Pass 2: one
+    block over the `words` = ceil(n / 32) row-any bit words. Pass 3: a grid
+    g3 = (row groups of cr, slot chunks of jc) of about four blocks per SM,
+    each staging jc hot ids and cr spec rows and compiled flags (smem3
+    bytes)."""
+    if c_pad < 1:
+        raise ValueError("need_tail: no constraint rows")
+    if not 0 < r <= n:
+        raise ValueError(f"need_tail: r_cap {r} outside (0, {n}]")
+    if n > 2**31 - 1 - NEED_TILE:
+        raise ValueError(f"need_tail: {n} reviews exceed a chunk")
+    target = 4 * sms
+    tiles = -(-n // NEED_TILE)
+    # pass 1 at about two blocks per SM, as many as its registers (about
+    # 100 a thread) let an SM hold: one wave, 16 constraints a slice at the
+    # main shape; 8 (two waves) and 32 (one block per SM) were slower
+    cs = min(NEED_MAX_CS, max(1, -(-c_pad // -(-target // 2 // tiles))))
+    slices = -(-c_pad // cs)
+    jc = min(NEED_PACK_JC, -(-r // 32) * 32)
+    chunks = -(-r // jc)
+    cr = min(NEED_MAX_CR, max(1, -(-c_pad * chunks // target)))
+    if max(slices, chunks) > GRID_Y_MAX:
+        raise ValueError(f"need_tail: [{c_pad}, {n}] with r_cap {r} exceeds "
+                         f"the grid ({slices} slices, {chunks} slot chunks)")
+    words = -(-n // 32)
+    if need_layout(c_pad, r)[2] + words > 2**31 - 1:
+        raise ValueError(f"need_tail: [{c_pad}, {r}] packed bits exceed int32")
+    return {
+        "cs": cs, "g1": (tiles, slices), "jc": jc, "cr": cr,
+        "g3": (-(-c_pad // cr), chunks),
+        "smem3": -(-(4 * jc + 5 * cr) // 16) * 16,
+        "vec": n % 16 == 0 and all(a % 16 == 0 for a in addrs),
+        "words": words,
+    }
+
+
 def need_tail(match_u, spec_map, viol, compiled, row_fb, n_valid: int,
               r_cap: int):
     """K4 wrapper: see need_tail_plain."""
@@ -619,22 +822,27 @@ def need_tail(match_u, spec_map, viol, compiled, row_fb, n_valid: int,
         or compiled.shape[0] != c_pad or row_fb.shape[0] != n
     ):
         raise ValueError("need_tail: inconsistent shapes")
-    if not 0 < r_cap <= n:
-        raise ValueError(f"need_tail: r_cap {r_cap} outside (0, {n}]")
+    plan = need_plan(
+        c_pad, n, r_cap,
+        (match_u.data_ptr(), viol.data_ptr(), row_fb.data_ptr()),
+        _sms(viol.device),
+    )
     _, w4, width = need_layout(c_pad, r_cap)
-    out = torch.zeros((width,), dtype=torch.int32, device=viol.device)
-    rowany = torch.empty((n,), dtype=torch.bool, device=viol.device)
+    # the output row and the row-any bit words after it: one zeroed buffer
+    buf = torch.zeros((width + plan["words"],), dtype=torch.int32,
+                      device=viol.device)
     from .build import library
 
     lib = library("need")
     rc = lib.gk_need_tail(
         _ptr(match_u), _ptr(spec_map), _ptr(viol), _ptr(compiled),
-        _ptr(row_fb), c_pad, n, int(n_valid), r_cap, _ptr(rowany),
-        _ptr(out), w4, _stream(),
+        _ptr(row_fb), c_pad, n, max(0, min(int(n_valid), n)), r_cap,
+        _ptr(buf), w4, plan["cs"], *plan["g1"], plan["jc"], plan["cr"],
+        *plan["g3"], plan["smem3"], int(plan["vec"]), _stream(),
     )
     _check(rc, "need_tail")
     LAUNCHES["need_tail"] += 1
-    return out
+    return buf[:width]
 
 
 # ---------------------------------------------------------------------------
