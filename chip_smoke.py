@@ -11,6 +11,11 @@ Phases, one line each on stdout, in this order:
   parity   1,000 pods x 50 constraints on TorchDriver("cuda"): 4 review
            batches of 64 identical to the port's own interpreter driver
            (RegoDriver);
+  subset   partition-scoped review over the same clients
+           (Client.review_many_subset, the constraints split into 3
+           subsets): 4 batches of 64, each subset's results equal to the
+           interpreter driver's, merged in constraint order equal to the
+           whole review_many; K1-K4 must launch;
   audit_parity  the audit controller on the same clients, 4 host-filesystem
            join constraints added: AuditManager sweeps from the cache
            before and after a 2% churn (whole result lists and reports
@@ -68,7 +73,12 @@ Phases, one line each on stdout, in this order:
            edge widths of their launch plans and on views that start off
            16-byte alignment; K4 at the N, n_valid, R and slice edges of
            its plan and bit layout; K1 at U = 1 and the largest U its plan
-           takes, 4 and 16 label slots, dead and live selectors mixed).
+           takes, 4 and 16 label slots, dead and live selectors mixed; K5
+           at fills of every residue modulo 16, a zero-row delta, one
+           delta of many segments, an empty table list, its staging arena
+           growing over consecutive flushes, two large flushes issued back
+           to back with no synchronize between them, and the mapped
+           route).
 
 The line before the last is the kernel table as one JSON object; the last
 line is {"ok": true, "device": {...}}. Any failing phase raises, and the
@@ -76,12 +86,18 @@ script exits nonzero without that line; so does a machine without CUDA.
 
     python3 chip_smoke.py --probe [--tree DIR]
 
-builds K1-K4 alone (from DIR, another checkout of this repo, if given),
+builds K1-K5 alone (from DIR, another checkout of this repo, if given),
 prints their ptxas report and a SASS summary, and times them at the main
 path's shapes on seeded inputs beside their plain versions and bounds,
 per __global__ function, with an empty kernel's device time (the launch
 floor) from the same profiler window; the SASS listing goes beside the
-built kernels (build/gatekeeper_tpu_torch/probe_sass_*.txt).
+built kernels (build/gatekeeper_tpu_torch/probe_sass_*.txt). K5 is timed
+on a flush in the recorded shape (DELTA_PROBE_TABLES) and on one 8 MiB
+delta: the kernel's device time, the staging copy's, and the wrapper's
+host ms per call, and the same for the mapped variant (K5 reading the
+pinned staging over the host link, no copy) where the tree has it; then
+the copy of a staging-sized pinned buffer as it lies and right after the
+host rewrote it.
 """
 
 from __future__ import annotations
@@ -156,6 +172,7 @@ KERNEL_FUNCS = {
 
 # the kernels each counted path must launch
 PATH_KERNELS = {
+    "subset": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "full": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "audit_churn": ("match_matrix", "slab_gather", "egroup", "need_tail",
                     "flush_deltas", "gather_elem"),
@@ -810,6 +827,72 @@ def phase_parity(device: str, n_pods: int = 1000, n_constraints: int = 50,
         "seconds": time.perf_counter() - t0,
     }), flush=True)
     return port, ref, drv
+
+
+def merge_subset_results(result_lists, order):
+    """One review's per-subset results in the whole set's emit order:
+    autoreject results first, then the rest, each in constraint order
+    (`order`: constraint key -> index), a subset's own order kept within
+    one constraint (gatekeeper_tpu/parallel/partition.py
+    merge_partition_results)."""
+    from gatekeeper_tpu_torch.constraint.driver import (
+        AUTOREJECT_MSG, constraint_key,
+    )
+
+    merged = [r for results in result_lists for r in results]
+    merged.sort(key=lambda r: (0 if r.msg == AUTOREJECT_MSG else 1,
+                               order.get(constraint_key(r.constraint),
+                                         len(order))))
+    return merged
+
+
+def phase_subset(port, ref, drv, n_batches: int = 4, batch: int = 64,
+                 k: int = 3):
+    """Partition-scoped review (Client.review_many_subset) over the parity
+    clients: the constraint keys split into k subsets (keys[p::k]); each
+    subset's results equal the interpreter driver's for that subset, and
+    merged in constraint order they equal the port's whole review_many.
+    K1-K4 must launch over the subset reviews. -> their launch counts."""
+    from gatekeeper_tpu_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    keys = drv.constraint_keys(TARGET)
+    order = {key: i for i, key in enumerate(keys)}
+    subsets = [frozenset(keys[p::k]) for p in range(k)]
+
+    def results(resps):
+        return [r.by_target[TARGET].results if TARGET in r.by_target else []
+                for r in resps]
+
+    ops.reset_launches()
+    parts_by_batch = []
+    for b in range(n_batches):
+        objs = review_batch(950 + b, batch)
+        parts_by_batch.append(
+            (objs, [results(port.review_many_subset(objs, s)) for s in subsets]))
+    launches = dict(ops.LAUNCHES)
+    n_results = 0
+    for b, (objs, parts) in enumerate(parts_by_batch):
+        for s, got in zip(subsets, parts):
+            want = results(ref.review_many_subset(objs, s))
+            if [_keys(x) for x in got] != [_keys(x) for x in want]:
+                raise AssertionError(f"subset: batch {b} differs from interp")
+        whole = results(port.review_many(objs))
+        merged = [merge_subset_results([p[i] for p in parts], order)
+                  for i in range(len(objs))]
+        if [_keys(x) for x in merged] != [_keys(x) for x in whole]:
+            raise AssertionError(f"subset: batch {b} merged differs")
+        n_results += sum(len(x) for x in whole)
+    if drv.device.type == "cuda":
+        missing = [n for n in PATH_KERNELS["subset"] if launches[n] <= 0]
+        if missing:
+            raise AssertionError(f"subset: kernels never launched: {missing}")
+    print(json.dumps({
+        "phase": "subset", "subsets": [len(s) for s in subsets],
+        "batches": n_batches, "results": n_results, "launches": launches,
+        "seconds": time.perf_counter() - t0,
+    }), flush=True)
+    return launches
 
 
 def _keep_audit(client):
@@ -1954,6 +2037,7 @@ def _random_variants(device, seed: int = 7):
         src = r.integers(-50, 50, dshape)
         deltas.append(src.astype(np.float64 if k % 2 else dt))
     out.append(("flush_deltas", (bufs, fills, deltas), {}))
+    out += _delta_edge_variants(r, t)
     # K7: ragged widths (rows of match and counts then cannot share their
     # alignment), -1 and out-of-range count rows, n_valid cut short, no
     # compiled row at all
@@ -2151,6 +2235,83 @@ def _egroup_edge_variants(r, t):
     return out
 
 
+def _delta_edge_variants(r, t):
+    """K5 at the edges of its plan: bool tables at fills of every residue
+    modulo 16, a zero-row delta among them, one delta longer than many
+    segments (past the headers that fit the kernel parameters), and an
+    empty table list."""
+    import numpy as np
+
+    bufs, fills, deltas = [], [], []
+    for k in range(16):
+        bufs.append(t(r.random(20_000) < 0.5))
+        fills.append(16 * int(r.integers(0, 600)) + k)
+        deltas.append(r.random(512 * (1 + k % 3) if k != 7 else 0) < 0.5)
+    out = [("flush_deltas", (bufs, fills, deltas), {})]
+    long_buf = t(r.integers(-9, 9, (300_000, 11)).astype(np.int32))
+    out.append(("flush_deltas", (
+        [long_buf], [3], [r.integers(-99, 99, (150_016, 11)).astype(np.int32)],
+    ), {}))
+    out.append(("flush_deltas", ([], [], []), {}))
+    return out
+
+
+def _delta_arena_checks():
+    """K5's staging reuse on the card, each flush against its plain
+    version: consecutive flushes of growing size (the arena grows), then
+    two large flushes issued back to back with no synchronize between them
+    (the second must wait for the first's copy before it rewrites the
+    staging), and the mapped route on the recorded probe shape.
+    -> {case: flushes checked}."""
+    import numpy as np
+    import torch
+    from gatekeeper_tpu_torch.kernels import ops
+
+    r = np.random.default_rng(17)
+
+    def case(rows, width, fill):
+        buf = torch.from_numpy(
+            r.integers(-9, 9, (fill + rows + 100, width)).astype(np.int32)
+        ).cuda()
+        return buf, fill, r.integers(-99, 99, (rows, width)).astype(np.int32)
+
+    checked = {}
+    arena = ops._arena(torch.device("cuda", torch.cuda.current_device()))
+    caps = []
+    for rows in (512, 4096, 65_536, 1_048_576):
+        buf, fill, d = case(rows, 5, int(r.integers(0, 999)))
+        want = ops.flush_deltas_plain([buf.clone()], [fill], [d])[0]
+        got = ops.flush_deltas([buf], [fill], [d])[0]
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"variants: K5 growth at {rows} rows differs")
+        caps.append(arena.cap)
+        checked["growth"] = checked.get("growth", 0) + 1
+    if caps != sorted(caps) or caps[0] == caps[-1]:
+        raise AssertionError(f"variants: K5 arena did not grow: {caps}")
+    # back to back: 24 MiB each, so the first copy is in flight while the
+    # second flush packs
+    a, b = case(393_216, 16, 1001), case(393_216, 16, 77)
+    want_a = ops.flush_deltas_plain([a[0].clone()], [a[1]], [a[2]])[0]
+    want_b = ops.flush_deltas_plain([b[0].clone()], [b[1]], [b[2]])[0]
+    torch.cuda.synchronize()
+    got_a = ops.flush_deltas([a[0]], [a[1]], [a[2]])[0]
+    got_b = ops.flush_deltas([b[0]], [b[1]], [b[2]])[0]
+    torch.cuda.synchronize()
+    if not (torch.equal(got_a, want_a) and torch.equal(got_b, want_b)):
+        raise AssertionError("variants: K5 back-to-back flushes differ")
+    checked["back_to_back"] = 2
+    for _, bufs, fills, deltas in _delta_probe_cases("cuda"):
+        want = _flat(ops.flush_deltas_plain([x.clone() for x in bufs],
+                                            fills, deltas))
+        got = _flat(ops._flush_cuda(bufs, fills, deltas, mapped=True))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("variants: K5 mapped route differs")
+        checked["mapped"] = checked.get("mapped", 0) + 1
+    return checked
+
+
 def phase_variants():
     """Each kernel against its plain version on the random variants."""
     import torch
@@ -2171,6 +2332,7 @@ def phase_variants():
     if not all(0.02 < m < 0.98 for m in match_rate[:3]):
         raise AssertionError(f"variants: match rates {match_rate}")
     print(json.dumps({"phase": "variants", "checked": checked,
+                      "delta_arena": _delta_arena_checks(),
                       "match_rates": match_rate}), flush=True)
 
 
@@ -2194,6 +2356,8 @@ def _flat(out):
     import torch
 
     if isinstance(out, list):
+        if not out:
+            return torch.zeros((0,), dtype=torch.uint8)
         return torch.cat([b.reshape(-1).view(torch.uint8) for b in out])
     return out
 
@@ -2275,12 +2439,20 @@ def phase_kernels(rec, launches):
         })
         if name == "need_tail":  # the timed input's n_hot and pair counts
             rows[-1]["n_hot_sc_si"] = out_k[-3:].tolist()
+        if name == "flush_deltas":  # the staging's host-to-device copy
+            rows[-1]["copy_ms"] = _device_ms(call_kernel, ("HtoD",))
+            rows[-1]["delta_bytes"] = sum(d.nbytes for d in args[2])
+            tables = {}
+            for buf, d in zip(args[0], args[2]):
+                key = f"{buf.dtype} {list(buf.shape[1:])} x {d.shape[0]} rows"
+                tables[key] = tables.get(key, 0) + 1
+            rows[-1]["tables"] = tables
     return rows
 
 
-# -- probe: K1-K4 alone (python3 chip_smoke.py --probe [--tree DIR]) ---------
+# -- probe: K1-K5 alone (python3 chip_smoke.py --probe [--tree DIR]) ---------
 
-PROBE_SOURCES = ("slab", "group", "need", "match")
+PROBE_SOURCES = ("slab", "group", "need", "match", "delta")
 
 
 def _sass_summary(lib):
@@ -2434,6 +2606,161 @@ def _probe_cases(device):
     return cases
 
 
+# K5's probe flush with the recorded audit_churn flush's table count and
+# bytes (PERF.md §6 row B7): 66 tables of bool, int32 and float32 whose
+# deltas sum to 651,264 bytes. The split is synthetic: 512-row deltas of
+# 1,272 bytes a vocab row over 61 string tables [V] and five slab tables
+# [V, T] (the kernels phase prints the recorded split). (dtype, columns,
+# count); columns 0 is [V].
+DELTA_PROBE_TABLES = (
+    ("bool", 0, 20), ("int32", 0, 30), ("float32", 0, 11),
+    ("bool", 44, 1), ("int32", 100, 1), ("bool", 44, 1), ("int32", 100, 1),
+    ("float32", 50, 1),
+)
+
+
+def _delta_probe_cases(device):
+    """K5 on seeded flushes: the recorded shape above (capacity 131,072
+    rows, fills drawn at random, so most destinations start off 16-byte
+    alignment) and one 8 MiB delta of an int32 [V, 32] table. ->
+    [(label, bufs, fills, deltas)], deltas as host numpy arrays of the
+    buffers' types, as the fused dispatch passes them."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(5)
+    cap, rows = 131_072, 512
+    bufs, fills, deltas = [], [], []
+    for dt, width, count in DELTA_PROBE_TABLES:
+        shape = (cap,) if width == 0 else (cap, width)
+        for _ in range(count):
+            bufs.append(torch.zeros(shape, dtype=getattr(torch, dt), device=device))
+            fills.append(int(r.integers(100_000, cap - rows)))
+            deltas.append(r.integers(-50, 50, (rows,) + shape[1:]).astype(dt))
+    big = torch.zeros((262_144, 32), dtype=torch.int32, device=device)
+    big_delta = r.integers(-50, 50, (65_536, 32)).astype(np.int32)
+    return [
+        ("k5 recorded shape, 66 tables, 651,264 B", bufs, fills, deltas),
+        ("k5 one 8 MiB delta, int32 [V, 32]", [big], [1001], [big_delta]),
+    ]
+
+
+def _probe_delta(empty, root):
+    """K5's probe rows: kernel ms (delta_kernel), copy ms (the one
+    host-to-device copy of the staging), the launch floor in the same
+    window, and the wrapper's host ms per call; for a tree that has the
+    mapped variant (ops._flush_cuda), the same with the kernel reading the
+    pinned staging over the host link instead of a copy."""
+    import torch
+    from gatekeeper_tpu_torch.kernels import ops
+
+    routes = {"parent": ops.flush_deltas}
+    if hasattr(ops, "_flush_cuda"):
+        routes = {
+            "copy": ops.flush_deltas,
+            "mapped": lambda b, f, d: ops._flush_cuda(b, f, d, mapped=True),
+        }
+    for label, bufs, fills, deltas in _delta_probe_cases("cuda"):
+        want = _flat(ops.flush_deltas_plain([b.clone() for b in bufs], fills,
+                                            deltas))
+        nbytes = sum(d.nbytes for d in deltas)
+        for route, flush in routes.items():
+            got = _flat(flush([b.clone() for b in bufs], fills, deltas))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"probe: {label} ({route}) differs")
+
+            def both():
+                flush(bufs, fills, deltas)
+                empty()
+
+            names = ("delta_kernel", "empty_kernel")
+            if route != "mapped":
+                names += ("HtoD",)
+            split = _device_split(both, names)
+            host_ms = _time_ms(lambda: flush(bufs, fills, deltas), reps=20)
+            print(json.dumps({
+                "probe": label, "root": root, "route": route,
+                "bytes": nbytes, "kernel_ms": split["delta_kernel"],
+                "copy_ms": split.get("HtoD"), "floor_ms": split["empty_kernel"],
+                "host_ms": host_ms,
+                "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+            }), flush=True)
+        plain_ms = _device_ms(
+            lambda: ops.flush_deltas_plain(bufs, fills, deltas), reps=3)
+        row = {"probe": label, "root": root, "plain_ms": plain_ms}
+        if hasattr(ops, "delta_plan"):
+            row["host_split_ms"] = _delta_host_split(ops, bufs, fills, deltas)
+        print(json.dumps(row), flush=True)
+
+
+def _probe_staging_copy(nbytes: int = 655_664, buffers: int = 4):
+    """The host-to-device copy of a staging-sized pinned buffer (torch
+    only, no kernel of the port), per buffer: copied as it lies, and copied
+    right after the host rewrote it, as every flush does."""
+    import numpy as np
+    import torch
+
+    src = np.random.default_rng(6).integers(0, 255, nbytes).astype(np.uint8)
+    dev = torch.empty((nbytes,), dtype=torch.uint8, device="cuda")
+    out, kept = [], []
+    for _ in range(buffers):
+        host = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=True)
+        kept.append(host)  # each buffer a new allocation
+        view = host.numpy()
+        view[:] = src
+
+        def copy():
+            dev.copy_(host, non_blocking=True)
+
+        def rewrite_then_copy():
+            view[:] = src
+            dev.copy_(host, non_blocking=True)
+
+        out.append({"copy_ms": _device_ms(copy, ("HtoD",), reps=20),
+                    "rewrite_then_copy_ms": _device_ms(rewrite_then_copy,
+                                                       ("HtoD",), reps=20)})
+    print(json.dumps({"probe": f"staging copy, {nbytes:,} B pinned",
+                      "buffers": out}), flush=True)
+
+
+def _delta_host_split(ops, bufs, fills, deltas, reps: int = 50):
+    """Host ms per call of the K5 wrapper's stages (host clock, no device
+    work): the per-table checks and casts (_host_delta), the plan
+    (delta_plan), the packing (pack_deltas), and the packing with every
+    delta in one slice assignment, and with every delta by torch's copy_
+    (the two sides of PACK_PARALLEL_BYTES)."""
+    import numpy as np
+
+    def ms(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def tables():
+        return [ops._host_delta(d, b, f) for b, f, d in zip(bufs, fills, deltas)]
+
+    ds = tables()
+    dsts = [b.data_ptr() + f * d.strides[0] for b, f, d in zip(bufs, fills, ds)]
+    sizes = [d.nbytes for d in ds]
+    plan = ops.delta_plan(dsts, sizes, 132)
+    staging = np.empty((plan["total"],), np.uint8)
+    out = {"tables": ms(tables),
+           "plan": ms(lambda: ops.delta_plan(dsts, sizes, 132)),
+           "pack": ms(lambda: ops.pack_deltas(staging, plan, ds))}
+    saved = ops.PACK_PARALLEL_BYTES
+    try:
+        for key, limit in (("pack_one_slice_each", 1 << 62),
+                           ("pack_torch_copy_each", 0)):
+            ops.PACK_PARALLEL_BYTES = limit
+            out[key] = ms(lambda: ops.pack_deltas(staging, plan, ds))
+    finally:
+        ops.PACK_PARALLEL_BYTES = saved
+    return out
+
+
 def _empty_kernel():
     """The empty kernel of this checkout's csrc/empty.cu, built apart from
     the probed tree: -> fn() launching it once (one block of 32 threads)."""
@@ -2479,16 +2806,16 @@ def _device_split(fn, kernels, reps: int = 20):
         got, seen = {}, {}
         for e in prof.key_averages():
             name = _kernel_name(e)
+            seen[name] = seen.get(name, 0) + e.count
             if name in kernels:
                 got[name] = got.get(name, 0.0) + _device_time_us(e) / 1e3 / reps
-                seen[name] = seen.get(name, 0) + e.count
         if all(seen.get(k, 0) == reps for k in kernels):
             return got
     raise AssertionError(f"profiler recorded {seen} for {kernels} over {reps}")
 
 
 def phase_probe(tree=None):
-    """Build K1-K4 from `tree` (a checkout of this repo; default this one),
+    """Build K1-K5 from `tree` (a checkout of this repo; default this one),
     report ptxas registers and spills, the SASS instruction count and
     subroutine calls of each kernel, and time each kernel at the main
     path's shapes beside its plain version and its bound: per __global__
@@ -2544,6 +2871,8 @@ def phase_probe(tree=None):
         if name == "need_tail":
             row["n_hot_sc_si"] = got[-3:].tolist()
         print(json.dumps(row), flush=True)
+    _probe_delta(empty, root)
+    _probe_staging_copy()
 
 
 def main() -> int:
@@ -2564,7 +2893,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     phase_card()
     phase_build()
-    phase_audit_parity(*phase_parity("cuda"))
+    port, ref, drv = phase_parity("cuda")
+    launches_subset = phase_subset(port, ref, drv)
+    phase_audit_parity(port, ref, drv)
+    del port, ref, drv
     rec, launches_full, client, drv = phase_full("cuda")
     phase_profile(client, drv)
     launches_churn = phase_audit_churn(client, drv, rec)
@@ -2574,7 +2906,8 @@ def main() -> int:
     client, drv, pairs, launches_inv = phase_inventory("cuda", rec)
     launches_out = phase_full_output(client, drv, rec, pairs)
     rows = phase_kernels(
-        rec, {"full": launches_full, "audit_churn": launches_churn,
+        rec, {"subset": launches_subset, "full": launches_full,
+              "audit_churn": launches_churn,
               "inventory": launches_inv, "full_output": launches_out}
     )
     phase_variants()

@@ -1,4 +1,6 @@
 # Copied from gatekeeper_tpu/constraint/driver.py; only imports and the edits noted in this header differ.
+# Edit: Driver.query_many_subset takes the `partition` keyword that
+# Client.review_many_subset passes (the source's signature lacks it).
 """Evaluation engine drivers.
 
 `Driver` is the engine plugin boundary — the same seven-method surface as
@@ -136,7 +138,8 @@ class Driver(ABC):
         return self.query(path, input)
 
     def query_many_subset(
-        self, path: str, inputs: Sequence[Any], subset, device: int = 0
+        self, path: str, inputs: Sequence[Any], subset, device: int = 0,
+        partition=None,
     ) -> List[Response]:
         """Partition-scoped batched query (docs/robustness.md §Fault
         domains): evaluate only `subset`'s constraints for every input.

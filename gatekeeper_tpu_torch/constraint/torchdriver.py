@@ -23,11 +23,14 @@ interpreter against the derived-key prune index's candidates, not the
 whole inventory (`stats["pruned_renders"]`).
 
 Every micro-batch goes to the device: PyTorch compiles nothing, so there
-is no cold kernel to serve around. Not carried over from TpuDriver (see
-ROADMAP.md): the static analyzer's routing and feature liveness, fault
-injection, external data (a program reading "extdata:" row features
-raises NotImplementedError), integrity canaries, cost attribution,
-metrics and partitioned dispatch.
+is no cold kernel to serve around. A partition-scoped review
+(`query_many_subset`) is one fused dispatch of a constraint set cut to the
+subset. Not carried over from TpuDriver (see ROADMAP.md): the static
+analyzer's routing and feature liveness, fault injection, external data (a
+program reading "extdata:" row features raises NotImplementedError),
+integrity canaries, cost attribution, metrics and the partition plane
+around the subset dispatch (its fault point, signature carry-forward and
+prepare_subset).
 """
 
 from __future__ import annotations
@@ -61,7 +64,13 @@ from ..rego import ast as A
 from ..rego.interp import RegoError, Undefined, _call_function
 from ..rego.values import freeze, thaw
 from . import hooks as H
-from .driver import _HOOK_RE, RegoDriver, _autoreject_result, _cname
+from .driver import (
+    _HOOK_RE,
+    RegoDriver,
+    _autoreject_result,
+    _cname,
+    constraint_key,
+)
 from .types import Response, Result
 
 _TEMPLATE_PREFIX_RE = re.compile(r'^templates\["([^"]+)"\]\["([^"]+)"\]$')
@@ -144,6 +153,12 @@ class TorchDriver(RegoDriver):
         self._constraint_gen = 0
         self._corpus: Dict[str, _Corpus] = {}
         self._cset: Dict[str, _ConstraintSet] = {}
+        # partition-scoped sets per (target, subset of constraint keys),
+        # oldest dropped first past _cset_sub_max
+        self._cset_sub: "OrderedDict[Tuple[str, frozenset], _ConstraintSet]" = (
+            OrderedDict()
+        )
+        self._cset_sub_max = 64
         # rendered-pair cache of the audit corpus, per target, valid for
         # one (data, constraint) generation: violating pairs that persist
         # across sweeps skip the re-render
@@ -292,6 +307,60 @@ class TorchDriver(RegoDriver):
         )
         self._cset[target] = cs
         return cs
+
+    def _subset_cset(
+        self, target: str, subset: frozenset
+    ) -> Optional[_ConstraintSet]:
+        """The constraint set of `subset`'s constraints only, in
+        `_constraints`' order, with its own match specs and (lazily staged)
+        device policy; None when the subset names no constraint. Programs
+        come from the shared `_programs` cache and, unlike
+        `_constraint_set`, none is evicted here: the whole set may still
+        use it. Cached per (target, subset) until the constraints change
+        (tpudriver.py:937-970, without the signature carry-forward)."""
+        key = (target, subset)
+        cs = self._cset_sub.get(key)
+        if cs is not None and cs.constraint_gen == self._constraint_gen:
+            return cs
+        self._cset_sub.pop(key, None)
+        # the whole set first: its column map is the one the subset stages
+        # through (_staged_policy), and every pattern its programs register
+        # must exist before a review batch takes its overlay snapshot
+        full = self._constraint_set(target)
+        constraints = [
+            c for c in (full.constraints if full is not None else [])
+            if constraint_key(c) in subset
+        ]
+        if not constraints:
+            return None
+        ms = self._handler(target).compile_match_specs(constraints, self.vocab)
+        cs = _ConstraintSet(
+            constraint_gen=self._constraint_gen,
+            constraints=constraints,
+            ms=matchspec_to_np(ms),
+            programs=[self._program_for(target, c) for c in constraints],
+        )
+        while len(self._cset_sub) >= self._cset_sub_max:
+            self._cset_sub.popitem(last=False)
+        self._cset_sub[key] = cs
+        return cs
+
+    def _staged_policy(self, target: str, cs: _ConstraintSet):
+        """`cs`'s device policy, staged once per set. A subset set stages
+        its slab columns through the whole set's column map: the resident
+        `<kind>!T` tables are keyed by their columns
+        (FusedKernel._tables_device), so sets with columns of their own,
+        used in turn, would upload those tables whole on every switch."""
+        if cs.policy is None:
+            cols = None
+            full = self._constraint_set(target)
+            if full is not None and full is not cs:
+                cols = (
+                    full.policy.cols if full.policy is not None
+                    else self.kernel.policy_columns(full.programs)
+                )
+            cs.policy = self.kernel.stage_policy(cs.programs, cs.ms, cols=cols)
+        return cs.policy
 
     # -- corpus encoding -----------------------------------------------------
 
@@ -447,9 +516,7 @@ class TorchDriver(RegoDriver):
         work, compiled_pairs, interp_pairs); adds stage/row_features/
         dispatch/decode seconds to `phases`."""
         t0 = time.perf_counter()
-        if cs.policy is None:
-            cs.policy = self.kernel.stage_policy(cs.programs, cs.ms)
-        policy = cs.policy
+        policy = self._staged_policy(target, cs)
         stacked = self._stage_corpus(corpus, policy)
         t_feats = time.perf_counter()
         needed = sorted(
@@ -635,12 +702,38 @@ class TorchDriver(RegoDriver):
             split = self._query_batch(target, list(inputs), None)
         return [Response(target=target, results=r) for r in split]
 
+    def query_many_subset(
+        self, path: str, inputs: Sequence[Any], subset, device: int = 0,
+        partition=None,
+    ) -> List[Response]:
+        """Partition-scoped batched violation hook: only `subset`'s
+        constraints (keys per `constraint_key`) for every input, as one
+        fused dispatch, like query_many. Merged across a plan's subsets in
+        `constraint_keys` order, the results equal query_many's.
+        `device` and `partition` are accepted and change no result: the
+        partition plane that reads them (fault point, canaries, cost
+        attribution) is not ported (ROADMAP A3c)."""
+        m = _HOOK_RE.match(path)
+        if m is None or m.group(2) != "violation":
+            raise ValueError(f"unsupported partition query path: {path!r}")
+        target = m.group(1)
+        with self._mutex:
+            cs = self._subset_cset(target, frozenset(subset))
+            if cs is None:
+                return [Response(target=target, results=[]) for _ in inputs]
+            split = self._query_batch(target, list(inputs), None, cset=cs)
+        return [Response(target=target, results=r) for r in split]
+
     def _query_batch(
-        self, target: str, inputs: List[Any], trace: Optional[List[str]]
+        self, target: str, inputs: List[Any], trace: Optional[List[str]],
+        cset: Optional[_ConstraintSet] = None,
     ) -> List[List[Result]]:
-        """Autoreject results, then the fused evaluation, per review."""
+        """Autoreject results, then the fused evaluation, per review, over
+        `cset` (default: every constraint of the target)."""
         handler = self._handler(target)
-        constraints = self._constraints(target)
+        constraints = (
+            cset.constraints if cset is not None else self._constraints(target)
+        )
         if not constraints:
             return [[] for _ in inputs]
         ns_cache = self._ns_cache(target)
@@ -656,7 +749,9 @@ class TorchDriver(RegoDriver):
                 if trace is not None:
                     trace.extend(f"autoreject: {_cname(c)}" for c in rej_constraints)
             out.append(auto)
-        split = self._eval_reviews_split(target, reviews, trace, corpus=None)
+        split = self._eval_reviews_split(
+            target, reviews, trace, corpus=None, cset=cset
+        )
         return [a + r for a, r in zip(out, split)]
 
     def _audit(self, target: str, trace: Optional[List[str]]) -> List[Result]:
@@ -679,14 +774,16 @@ class TorchDriver(RegoDriver):
         trace: Optional[List[str]],
         corpus: Optional[_Corpus],
         encode_s: float = 0.0,
+        cset: Optional[_ConstraintSet] = None,
     ) -> List[List[Result]]:
         """Fused evaluation on the device, then rendering of the sparse
         pairs that need host work; results grouped per review in the
         interpreter driver's (review-major) order. `encode_s`: seconds
-        the caller spent encoding `corpus` (the cached audit corpus)."""
+        the caller spent encoding `corpus` (the cached audit corpus);
+        `cset`: the constraint set (default: the target's whole set)."""
         t_start = time.perf_counter()
         with self._mutex:
-            cs = self._constraint_set(target)
+            cs = cset if cset is not None else self._constraint_set(target)
             if cs is None:
                 self.stats = {}
                 return [[] for _ in reviews]

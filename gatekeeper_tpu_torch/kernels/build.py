@@ -36,7 +36,7 @@ _SIGNATURES = {
                             _I, ctypes.c_float, _P, _I, _I, _I, _I, _I, _P]),
     "need": ("gk_need_tail", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "delta": ("gk_flush_deltas", [_P, _I, _P]),
+    "delta": ("gk_flush_deltas", [_P, _P, ctypes.c_longlong, _I, _P]),
     "gather": ("gk_gather_elem", [_P, _I, _P, _P, _I, _I, ctypes.c_uint,
                                   _P, ctypes.c_longlong, _I, _I, _P]),
     "empty": ("gk_empty", [_I, _I, _P]),  # the launch floor (probe only)

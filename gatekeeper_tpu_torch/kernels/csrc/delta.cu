@@ -4,55 +4,112 @@
 // `FusedAuditKernel._flush_deltas`: when the vocabulary grows inside its
 // padded bucket, each device table receives only its new rows [fill, vlen)
 // (zero-padded to a multiple of 512 rows), all tables in one call. The host
-// packs every table's delta into one staging buffer behind a segment table
-// and ships it with one host->device copy; this kernel then writes each
-// segment to its table at `fill` rows in. Casts happen on the host.
+// packs every delta into one pinned staging buffer behind a segment table
+// (ops.delta_plan, ops.pack_deltas); the entry point below ships it with
+// one host-to-device copy and launches this kernel, which writes each
+// segment to its table. Casts happen on the host.
 //
-// Segment i (three int64 at the start of the staging buffer): the absolute
-// destination address, the source offset into the staging buffer, and the
-// byte count. The host cuts a delta into segments of at most 64 KiB and
-// places each so that source and destination agree modulo 16.
+// Segment: the destination address, the staging offset and the byte count.
+// The host cuts every delta at multiples of the plan's segment size (4 or
+// 8 KiB) in the destination's address space and places it in the staging
+// at an offset congruent to its destination modulo 16, so the aligned
+// 16-byte vectors of a segment line up at both ends and a segment spans at
+// most THREADS * VEC of them. The staging ends on a 16-byte boundary: the
+// vectors holding a segment's first and last bytes lie inside the staging.
 //
-// Bound: bytes. Each delta byte is read once and written once. One block
-// per segment walks it with a block-stride loop: byte moves up to the
-// first 16-byte boundary, 16-byte vector moves in the middle (neighbouring
-// threads on neighbouring addresses), byte moves for the tail. A segment
-// whose ends disagree modulo 16 moves bytes only.
+// Bound: bytes (each delta byte read once and written once), but the
+// recorded flush (651,264 bytes) is below one launch floor of work, so what
+// the design fights is latency:
+//   * one block per segment, so the recorded flush spreads over every SM;
+//   * each thread issues the loads of all its VEC vectors before its first
+//     store: one round trip to memory per block, not one per 16 bytes;
+//   * the headers of the first PARAM_SEGS segments ride in the kernel
+//     parameters, so a block's first data load depends on no load of its
+//     own (segments past PARAM_SEGS read theirs from the staging's head);
+//   * 32-bit arithmetic inside a segment.
+// Vectors that hold a segment's first or last bytes (a destination off
+// 16-byte alignment, a ragged end) are stored byte by byte, only the
+// segment's own bytes; every other vector is one 16-byte store.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
+constexpr int THREADS = 256;
+constexpr int VEC = 2;  // 16-byte vectors per thread: 8 KiB per block
+constexpr int PARAM_SEGS = 248;
+
 struct Segment {
-  long long dst;
-  long long src;
-  long long n;
+  unsigned long long dst;  // destination address
+  unsigned int src;        // offset into the staging
+  unsigned int n;          // bytes
 };
 
-__global__ void delta_kernel(const Segment* __restrict__ segs,
-                             const uint8_t* __restrict__ base) {
-  const Segment s = segs[blockIdx.x];
-  uint8_t* d = reinterpret_cast<uint8_t*>(s.dst);
-  const uint8_t* src = base + s.src;
-  const long long n = s.n;
-  const long long step = blockDim.x;
-  if (((s.dst - (long long)(uintptr_t)src) & 15) != 0) {
-    for (long long i = threadIdx.x; i < n; i += step) d[i] = src[i];
-    return;
-  }
-  long long head = (16 - (s.dst & 15)) & 15;
-  if (head > n) head = n;
-  for (long long i = threadIdx.x; i < head; i += step) d[i] = src[i];
-  const long long nv = (n - head) >> 4;
-  uint4* dv = reinterpret_cast<uint4*>(d + head);
-  const uint4* sv = reinterpret_cast<const uint4*>(src + head);
-  for (long long i = threadIdx.x; i < nv; i += step) dv[i] = sv[i];
-  for (long long i = head + (nv << 4) + threadIdx.x; i < n; i += step)
-    d[i] = src[i];
+struct Params {
+  const uint8_t* base;  // the staging (its segment table first)
+  int n_param;          // segments whose headers ride below
+  Segment segs[PARAM_SEGS];
+};
+static_assert(sizeof(Segment) == 16, "ops.SEG_DTYPE");
+static_assert(sizeof(Params) <= 4096, "kernel parameters");
+
+__device__ __forceinline__ uint8_t byte_of(const uint4& v, unsigned i) {
+  const unsigned w = i < 8 ? (i < 4 ? v.x : v.y) : (i < 12 ? v.z : v.w);
+  return (uint8_t)(w >> ((i & 3) * 8));
 }
 
-extern "C" int gk_flush_deltas(const void* staging, int n_segs, void* stream) {
+__global__ void __launch_bounds__(THREADS)
+    delta_kernel(const __grid_constant__ Params p) {
+  const unsigned b = blockIdx.x;
+  const Segment s = b < (unsigned)p.n_param
+                        ? p.segs[b]
+                        : reinterpret_cast<const Segment*>(p.base)[b];
+  const unsigned lead = (unsigned)(s.dst & 15);
+  const unsigned end = lead + s.n;  // bytes from the first aligned vector
+  const unsigned nv = (end + 15) >> 4;
+  const uint4* src = reinterpret_cast<const uint4*>(p.base + (s.src - lead));
+  uint4* dst = reinterpret_cast<uint4*>(s.dst - lead);
+  uint4 v[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const unsigned k = threadIdx.x + j * THREADS;
+    if (k < nv) v[j] = src[k];
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const unsigned k = threadIdx.x + j * THREADS;
+    if (k >= nv) continue;
+    const unsigned lo = k << 4;
+    const unsigned a = lo < lead ? lead - lo : 0;
+    const unsigned e = end - lo < 16 ? end - lo : 16;
+    if (a == 0 && e == 16) {
+      dst[k] = v[j];
+    } else {
+      uint8_t* d = reinterpret_cast<uint8_t*>(dst + k);
+      for (unsigned i = a; i < e; ++i) d[i] = byte_of(v[j], i);
+    }
+  }
+}
+
+// `host`: the pinned staging, its segment table first (the first
+// PARAM_SEGS entries go into the launch's parameters); `dev`: the staging
+// K5 reads. With `copy_bytes` > 0, its first `copy_bytes` are copied from
+// `host` to `dev` on `stream` first (one asynchronous copy); with 0, `dev`
+// is `host` itself, read over the host link (the mapped route).
+extern "C" int gk_flush_deltas(const void* host, void* dev,
+                               long long copy_bytes, int n_segs,
+                               void* stream) {
   if (n_segs <= 0) return 0;
-  delta_kernel<<<n_segs, 256, 0, (cudaStream_t)stream>>>(
-      (const Segment*)staging, (const uint8_t*)staging);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (copy_bytes > 0) {
+    cudaError_t rc = cudaMemcpyAsync(dev, host, (size_t)copy_bytes,
+                                     cudaMemcpyHostToDevice, st);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  Params p{};
+  p.base = (const uint8_t*)dev;
+  p.n_param = n_segs < PARAM_SEGS ? n_segs : PARAM_SEGS;
+  std::memcpy(p.segs, host, sizeof(Segment) * p.n_param);
+  delta_kernel<<<n_segs, THREADS, 0, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -849,24 +849,29 @@ def need_tail(match_u, spec_map, viol, compiled, row_fb, n_valid: int,
 # K5 flush_deltas
 
 
-def _host_delta(delta, buf: torch.Tensor, fill: int) -> torch.Tensor:
-    """A delta as a contiguous CPU tensor of the buffer's dtype (the cast
-    happens on the host, as the JAX version's `.astype(b.dtype)` does),
-    checked to fit the buffer at rows [fill, fill + len)."""
+@functools.lru_cache(maxsize=None)
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty((0,), dtype=dtype).numpy().dtype
+
+
+def _host_delta(delta, buf: torch.Tensor, fill: int) -> np.ndarray:
+    """A delta as a C-contiguous host array of the buffer's dtype (cast on
+    the host where the dtype differs, as the JAX version's
+    `.astype(b.dtype)`), checked to fit the buffer at rows
+    [fill, fill + len)."""
     if isinstance(delta, torch.Tensor):
-        d = delta.detach().to("cpu")
-    else:
-        d = torch.from_numpy(np.ascontiguousarray(np.asarray(delta)))
-    d = d.to(buf.dtype).contiguous()
-    if d.dim() != buf.dim() or tuple(d.shape[1:]) != tuple(buf.shape[1:]):
+        delta = delta.detach().cpu().numpy()
+    d = np.ascontiguousarray(delta, dtype=_np_dtype(buf.dtype))
+    shape = buf.shape
+    if d.ndim != len(shape) or d.shape[1:] != shape[1:]:
         raise ValueError(
             f"flush_deltas: delta {tuple(d.shape)} does not fit buffer "
-            f"{tuple(buf.shape)}"
+            f"{tuple(shape)}"
         )
-    if fill < 0 or fill + d.shape[0] > buf.shape[0]:
+    if fill < 0 or fill + d.shape[0] > shape[0]:
         raise ValueError(
             f"flush_deltas: rows [{fill}, {fill + d.shape[0]}) outside "
-            f"a buffer of {buf.shape[0]}"
+            f"a buffer of {shape[0]}"
         )
     return d
 
@@ -877,74 +882,196 @@ def flush_deltas_plain(bufs: Sequence[torch.Tensor], fills: Sequence[int],
     [fill, fill + d), in place: one `copy_` per table. -> the buffers."""
     for buf, fill, delta in zip(bufs, fills, deltas):
         d = _host_delta(delta, buf, fill)
-        buf[fill:fill + d.shape[0]].copy_(d)
+        buf[fill:fill + d.shape[0]].copy_(torch.from_numpy(d))
     return list(bufs)
 
 
-# a segment of K5 moves at most this many bytes, so a large delta spreads
-# over several blocks; a multiple of 16 keeps both ends' alignment
-SEG_BYTES = 1 << 16
-_SEG_HEADER = 24  # {dst pointer, src offset, bytes} as three int64
+# K5's block (csrc/delta.cu): DELTA_THREADS threads move one segment,
+# DELTA_VEC 16-byte vectors each; the first DELTA_PARAM_SEGS segment
+# headers ride in the kernel parameters
+DELTA_THREADS = 256
+DELTA_VEC = 2
+DELTA_SEG_MAX = DELTA_THREADS * DELTA_VEC * 16  # 8 KiB
+DELTA_SEG_MIN = 4096
+DELTA_PARAM_SEGS = 248
+# struct Segment of csrc/delta.cu
+SEG_DTYPE = np.dtype([("dst", "<u8"), ("src", "<u4"), ("n", "<u4")])
 
 
-def delta_segments(bufs, fills, deltas):
-    """-> (segments [(dst address, nbytes, delta index, byte offset in the
-    delta)], staging offset of each delta, header bytes, staging bytes).
-    Each delta lands at a staging offset congruent to its destination
-    modulo 16, so K5's 16-byte moves are aligned at both ends; a delta
-    longer than SEG_BYTES is cut into several segments."""
-    dsts = [
-        b.data_ptr() + f * (b.numel() // max(b.shape[0], 1)) * b.element_size()
-        for b, f in zip(bufs, fills)
-    ]
-    sizes = [d.numel() * d.element_size() for d in deltas]
-    pieces = [
-        (dst + off, min(SEG_BYTES, n - off), i, off)
-        for i, (dst, n) in enumerate(zip(dsts, sizes))
-        for off in range(0, n, SEG_BYTES)
-    ]
-    header = -(-len(pieces) * _SEG_HEADER // 16) * 16
-    pos = header
-    starts = []
-    for dst, n in zip(dsts, sizes):
-        pos += (dst - pos) % 16
-        starts.append(pos)
-        pos += n
-    return pieces, starts, header, pos
+def delta_plan(dsts: Sequence[int], sizes: Sequence[int], sms: int):
+    """K5's launch plan for deltas of `sizes` bytes bound for the device
+    addresses `dsts`: -> dict(seg, table, starts, header, total).
+
+    seg: 8 KiB when the flush still gives every SM a segment at that size,
+    else 4 KiB. Each delta is cut at the multiples of seg in the
+    destination's address space, so a segment's offset from 16-byte
+    alignment plus its bytes never exceed seg: one block's threads move it
+    in DELTA_VEC vectors each. table: one SEG_DTYPE row per segment
+    (destination, staging offset, bytes), delta after delta. starts: each
+    delta's staging offset, behind the table (`header` bytes) and
+    congruent to its destination modulo 16; each delta's slot is padded to
+    16 bytes, so `total`, the staging's length, is a multiple of 16 and
+    the aligned vectors holding a segment's ends lie in its delta's
+    slot."""
+    dst = np.asarray(dsts, np.int64).reshape(-1)
+    size = np.asarray(sizes, np.int64).reshape(-1)
+    seg = DELTA_SEG_MAX if int(size.sum()) >= sms * DELTA_SEG_MAX else DELTA_SEG_MIN
+    live = size > 0
+    first = dst // seg
+    counts = np.where(live, (dst + size - 1) // seg - first + 1, 0)
+    n_segs = int(counts.sum())
+    header = n_segs * SEG_DTYPE.itemsize
+    lead = dst & 15
+    slot = np.where(live, (lead + size + 15) // 16 * 16, 0)
+    base = header + np.cumsum(slot) - slot
+    starts = base + lead
+    total = header + int(slot.sum())
+    if total >= 1 << 32:
+        raise ValueError(f"flush_deltas: {total} staging bytes exceed 4 GiB")
+    di = np.repeat(np.arange(dst.shape[0]), counts)
+    k = np.arange(n_segs) - np.repeat(np.cumsum(counts) - counts, counts)
+    win = (first[di] + k) * seg
+    lo = np.maximum(win, dst[di])
+    hi = np.minimum(win + seg, dst[di] + size[di])
+    table = np.empty((n_segs,), SEG_DTYPE)
+    table["dst"] = lo
+    table["src"] = starts[di] + (lo - dst[di])
+    table["n"] = hi - lo
+    return {"seg": seg, "table": table, "starts": starts, "header": header,
+            "total": total}
+
+
+# a delta of at least this many bytes is packed by torch's copy_, which
+# splits the copy over the host's threads (a slice assignment copies on
+# one; `chip_smoke.py --probe` times both on one 8 MiB delta)
+PACK_PARALLEL_BYTES = 1 << 20
+
+
+def pack_deltas(staging: np.ndarray, plan, deltas: Sequence[np.ndarray]) -> None:
+    """Write the plan's segment table and every delta (C-contiguous host
+    arrays of the buffers' dtypes, as _host_delta gives them) into
+    `staging` (uint8, at least plan["total"] bytes): one slice assignment
+    each, through a byte view of the staging (a torch view for deltas of
+    PACK_PARALLEL_BYTES or more)."""
+    view = memoryview(staging)
+    view[:plan["header"]] = plan["table"].view(np.uint8)
+    for d, pos in zip(deltas, plan["starts"].tolist()):
+        n = d.nbytes
+        if n >= PACK_PARALLEL_BYTES:
+            torch.from_numpy(staging[pos:pos + n]).copy_(
+                torch.from_numpy(d.reshape(-1).view(np.uint8)))
+        elif n:
+            view[pos:pos + n] = memoryview(d).cast("B")
+
+
+def arena_capacity(cap: int, need: int) -> int:
+    """The staging capacity for `need` bytes: `cap` doubled until it holds
+    them (64 KiB at least)."""
+    cap = max(cap, 1 << 16)
+    while cap < need:
+        cap *= 2
+    return cap
+
+
+class _DeltaArena:
+    """K5's staging on one device across calls: a pinned host buffer and a
+    device buffer of one capacity (arena_capacity), and the event recorded
+    after the last copy and launch that read them. A flush waits for that
+    event before it writes either buffer again, so a flush issued while the
+    previous one's copy is still in flight cannot overwrite its bytes."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.lock = threading.Lock()
+        self.cap = 0
+        self.host: Optional[torch.Tensor] = None
+        self.host_np: Optional[np.ndarray] = None
+        self.dev: Optional[torch.Tensor] = None
+        self.done: Optional[torch.cuda.Event] = None
+
+    def acquire(self, nbytes: int) -> np.ndarray:
+        """The host buffer, free to write and holding `nbytes`."""
+        if self.done is not None:
+            self.done.synchronize()
+        if nbytes > self.cap:
+            self.cap = arena_capacity(self.cap, nbytes)
+            self.host = self.host_np = self.dev = None  # release the old pair
+            self.host = torch.empty((self.cap,), dtype=torch.uint8,
+                                    pin_memory=True)
+            self.host_np = self.host.numpy()
+            self.dev = torch.empty((self.cap,), dtype=torch.uint8,
+                                   device=self.device)
+        return self.host_np
+
+    def release(self, stream) -> None:
+        """Mark the buffers busy until `stream`'s work so far is done."""
+        if self.done is None:
+            self.done = torch.cuda.Event()
+        self.done.record(stream)
+
+
+_ARENAS: Dict[torch.device, _DeltaArena] = {}
+_ARENAS_LOCK = threading.Lock()
+
+
+def _arena(device: torch.device) -> _DeltaArena:
+    with _ARENAS_LOCK:
+        arena = _ARENAS.get(device)
+        if arena is None:
+            arena = _ARENAS[device] = _DeltaArena(device)
+        return arena
 
 
 def flush_deltas(bufs: Sequence[torch.Tensor], fills: Sequence[int],
                  deltas: Sequence[Any]) -> List[torch.Tensor]:
     """K5 wrapper: see flush_deltas_plain. On CUDA buffers every delta is
-    packed into one pinned staging buffer behind a segment table, shipped
-    with ONE host->device copy, and written by ONE launch of K5."""
+    packed into the device's pinned staging behind the segment table of
+    its plan (delta_plan), shipped with ONE host-to-device copy, and
+    written by ONE launch of K5."""
     if not bufs:
         return []
     if not _on_cuda(*bufs):
         return flush_deltas_plain(bufs, fills, deltas)
-    for buf in bufs:
-        if not buf.is_contiguous() or buf.dtype not in _ELEM_BYTES:
+    return _flush_cuda(bufs, fills, deltas, mapped=False)
+
+
+def _flush_cuda(bufs, fills, deltas, mapped: bool) -> List[torch.Tensor]:
+    """flush_deltas on CUDA buffers. `mapped`: no copy, K5 reads the pinned
+    staging over the host link; the variant that `chip_smoke.py --probe`
+    times against the copy (PERF.md §6, PR 6), not used by the wrapper."""
+    device = bufs[0].device
+    ds, dsts = [], []
+    for buf, fill, delta in zip(bufs, fills, deltas):
+        if (buf.device != device or not buf.is_contiguous()
+                or buf.dtype not in _ELEM_BYTES or buf.dim() == 0):
             raise ValueError(
-                f"flush_deltas: buffer {buf.dtype} {tuple(buf.shape)} not "
-                "contiguous bool/int32/float32")
-    ds = [_host_delta(d, b, f) for b, f, d in zip(bufs, fills, deltas)]
-    pieces, starts, _, total = delta_segments(bufs, fills, ds)
-    if not pieces:
+                f"flush_deltas: buffer {buf.dtype} {tuple(buf.shape)} on "
+                f"{buf.device} not a contiguous bool/int32/float32 table "
+                f"on {device}")
+        d = _host_delta(delta, buf, fill)
+        ds.append(d)
+        # a delta row is a buffer row: its stride is the row's bytes
+        dsts.append(buf.data_ptr() + fill * d.strides[0])
+    plan = delta_plan(dsts, [d.nbytes for d in ds], _sms(device))
+    n_segs = plan["table"].shape[0]
+    if not n_segs:
         return list(bufs)
-    staging = torch.empty((total,), dtype=torch.uint8, pin_memory=True)
-    table = torch.tensor(
-        [[dst, starts[i] + off, n] for dst, n, i, off in pieces],
-        dtype=torch.int64,
-    )
-    staging[: table.numel() * 8].copy_(table.view(-1).view(torch.uint8))
-    for d, pos in zip(ds, starts):
-        raw = d.view(-1).view(torch.uint8)
-        staging[pos:pos + raw.numel()].copy_(raw)
-    dev = staging.to(bufs[0].device, non_blocking=True)
     from .build import library
 
     lib = library("delta")
-    _check(lib.gk_flush_deltas(_ptr(dev), len(pieces), _stream()), "flush_deltas")
+    arena = _arena(device)
+    with arena.lock:
+        staging = arena.acquire(plan["total"])
+        pack_deltas(staging, plan, ds)
+        stream = torch.cuda.current_stream(device)
+        host = staging.ctypes.data
+        if mapped:
+            rc = lib.gk_flush_deltas(host, host, 0, n_segs, stream.cuda_stream)
+        else:
+            rc = lib.gk_flush_deltas(host, arena.dev.data_ptr(), plan["total"],
+                                     n_segs, stream.cuda_stream)
+        arena.release(stream)
+    _check(rc, "flush_deltas")
     LAUNCHES["flush_deltas"] += 1
     return list(bufs)
 

@@ -183,6 +183,35 @@ class StackedCorpus:
         )
 
 
+def _program_groups(programs: Sequence[Optional[Program]]) -> List[Dict[str, Any]]:
+    """Compiled programs grouped by signature and const shapes, in first-
+    seen order: {"expr", "rows" (constraint rows), "consts" (distinct
+    const sets), "cmap" (row -> const set)}."""
+    groups: Dict[Tuple, Dict[str, Any]] = {}
+    for ci, p in enumerate(programs):
+        if p is None:
+            continue
+        gkey = (
+            p.signature,
+            tuple(sorted((k, v.shape) for k, v in p.consts.items())),
+        )
+        grp = groups.setdefault(
+            gkey,
+            {"expr": p.expr, "rows": [], "consts": [], "cmap": [], "cuniq": {}},
+        )
+        grp["rows"].append(ci)
+        csig = b"|".join(
+            k.encode() + b"=" + np.asarray(p.consts[k]).tobytes()
+            for k in sorted(p.consts)
+        )
+        cj = grp["cuniq"].get(csig)
+        if cj is None:
+            cj = grp["cuniq"][csig] = len(grp["consts"])
+            grp["consts"].append(p.consts)
+        grp["cmap"].append(cj)
+    return list(groups.values())
+
+
 class FusedKernel:
     """One-device fused need dispatch (see the module docstring)."""
 
@@ -199,12 +228,35 @@ class FusedKernel:
             "delta_rows": 0, "delta_bytes": 0, "delta_flushes": 0,
         }
         self.last_full_tables: List[str] = []  # of the latest restage
+        self.policy_stages = 0  # stage_policy calls
 
     # -- policy ---------------------------------------------------------------
 
+    def _columns(self, group_list: List[Dict[str, Any]]):
+        """The slab columns the groups' programs read (read_columns)."""
+        self.patterns.sync()
+        self.tables.sync()
+        str_kinds = {
+            name: _table_kind(np.asarray(t))
+            for name, t in self.tables.arrays().items()
+        }
+        return read_columns([g["expr"] for g in group_list], str_kinds)
+
+    def policy_columns(self, programs: Sequence[Optional[Program]]):
+        """The slab column map stage_policy would give `programs`, staging
+        nothing: a subset's policy stages through it (stage_policy's
+        `cols`)."""
+        return self._columns(_program_groups(programs))
+
     def stage_policy(
-        self, programs: Sequence[Optional[Program]], ms: Dict[str, np.ndarray]
+        self, programs: Sequence[Optional[Program]], ms: Dict[str, np.ndarray],
+        cols: Optional[Dict[str, List[Any]]] = None,
     ) -> StagedPolicy:
+        """Stage the constraint-side tensors. `cols`, when given, is the
+        slab column map to stage through (a superset of what `programs`
+        read, e.g. the whole set's for one of its subsets); raises if a
+        program reads a column outside it."""
+        self.policy_stages += 1
         c = next(iter(ms.values())).shape[0]
         ms_np = {k: np.asarray(v) for k, v in ms.items()}
         # content-dedup the match-spec rows: the match kernel runs over
@@ -224,37 +276,19 @@ class FusedKernel:
         ms_dev = {k: to_tensor(v[rep_idx], self.device) for k, v in ms_np.items()}
 
         compiled_mask = np.asarray([p is not None for p in programs], bool)
-        groups: Dict[Tuple, Dict[str, Any]] = {}
-        for ci, p in enumerate(programs):
-            if p is None:
-                continue
-            gkey = (
-                p.signature,
-                tuple(sorted((k, v.shape) for k, v in p.consts.items())),
-            )
-            grp = groups.setdefault(
-                gkey,
-                {"expr": p.expr, "rows": [], "consts": [], "cmap": [],
-                 "cuniq": {}},
-            )
-            grp["rows"].append(ci)
-            csig = b"|".join(
-                k.encode() + b"=" + np.asarray(p.consts[k]).tobytes()
-                for k in sorted(p.consts)
-            )
-            cj = grp["cuniq"].get(csig)
-            if cj is None:
-                cj = grp["cuniq"][csig] = len(grp["consts"])
-                grp["consts"].append(p.consts)
-            grp["cmap"].append(cj)
-        group_list = list(groups.values())
-        self.patterns.sync()
-        self.tables.sync()
-        str_kinds = {
-            name: _table_kind(np.asarray(t))
-            for name, t in self.tables.arrays().items()
-        }
-        cols = read_columns([g["expr"] for g in group_list], str_kinds)
+        group_list = _program_groups(programs)
+        own = self._columns(group_list)
+        if cols is None:
+            cols = own
+        else:
+            outside = {
+                k: sorted(set(v) - set(cols.get(k, ()))) for k, v in own.items()
+            }
+            outside = {k: v for k, v in outside.items() if v}
+            if outside:
+                raise ValueError(
+                    f"stage_policy: programs read slab columns {outside} "
+                    "outside the given column map")
         return StagedPolicy(
             ms_dev=ms_dev,
             spec_map=to_tensor(spec_map, self.device),

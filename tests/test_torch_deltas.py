@@ -3,9 +3,10 @@
   * `ops.flush_deltas_plain` against the JAX package's
     `FusedAuditKernel._flush_deltas` on seeded buffers and deltas of every
     table type, casts included;
-  * the staging layout K5 reads on the card (`ops.delta_segments`): every
+  * the staging layout K5 reads on the card (`ops.delta_plan`): every
     delta lands at an offset congruent to its destination modulo 16,
-    segments stay within SEG_BYTES and cover each delta exactly once;
+    segments stay within the plan's segment size and cover each delta
+    exactly once (more in test_torch_delta_plan.py);
   * TorchDriver("cpu") across add/remove-data churn: the sweep after the
     churn ships only the new vocab rows (the driver's upload counters),
     and its results equal the JAX TpuDriver's and the interpreter's;
@@ -107,30 +108,35 @@ def test_delta_segments_layout(seed):
     names = sorted(tabs)
     bufs = [torch.from_numpy(tabs[n][0]) for n in names]
     fills = [tabs[n][2] for n in names]
-    ds = [torch.from_numpy(tabs[n][1].astype(tabs[n][0].dtype)) for n in names]
+    ds = [tabs[n][1].astype(tabs[n][0].dtype) for n in names]
     # one delta past several segments
-    big = torch.zeros((50_000, 3), dtype=torch.int32)
     bufs.append(torch.zeros((60_000, 3), dtype=torch.int32))
     fills.append(9)
-    ds.append(big)
-    pieces, starts, header, total = ops.delta_segments(bufs, fills, ds)
-    assert header >= len(pieces) * 24 and header % 16 == 0
-    assert total >= header + sum(d.numel() * d.element_size() for d in ds)
+    ds.append(np.zeros((50_000, 3), np.int32))
+    rows = [b.stride(0) * b.element_size() for b in bufs]
+    dsts = [b.data_ptr() + f * r for b, f, r in zip(bufs, fills, rows)]
+    plan = ops.delta_plan(dsts, [d.nbytes for d in ds], sms=132)
+    table, starts, header = plan["table"], plan["starts"], plan["header"]
+    assert header == len(table) * 16 and header % 16 == 0
+    assert plan["total"] >= header + sum(d.nbytes for d in ds)
     covered = {}
-    for dst, n, i, off in pieces:
-        assert 0 < n <= ops.SEG_BYTES and off % 16 == 0
-        row = bufs[i][0].numel() * bufs[i].element_size()
-        assert dst == bufs[i].data_ptr() + fills[i] * row + off
+    for dst, src, n in zip(table["dst"].tolist(), table["src"].tolist(),
+                           table["n"].tolist()):
+        i = max(j for j, d0 in enumerate(dsts) if d0 <= dst < d0 + ds[j].nbytes)
+        off = dst - dsts[i]
+        assert 0 < n <= plan["seg"] and (dst & 15) + n <= plan["seg"]
+        assert src == starts[i] + off
         # source and destination agree modulo 16 (aligned vector moves)
-        assert (starts[i] + off - dst) % 16 == 0
+        assert (src - dst) % 16 == 0
         covered.setdefault(i, []).append((off, n))
     for i, d in enumerate(ds):
         spans = sorted(covered[i])
         assert spans[0][0] == 0
         assert all(a[0] + a[1] == b[0] for a, b in zip(spans, spans[1:]))
-        assert spans[-1][0] + spans[-1][1] == d.numel() * d.element_size()
+        assert spans[-1][0] + spans[-1][1] == d.nbytes
+    assert len(covered[len(ds) - 1]) > 50  # the long delta: many segments
     # staged deltas do not overlap each other or the header
-    ends = sorted((s, s + d.numel() * d.element_size()) for s, d in zip(starts, ds))
+    ends = sorted((s, s + d.nbytes) for s, d in zip(starts.tolist(), ds))
     assert ends[0][0] >= header
     assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
 
