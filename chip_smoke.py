@@ -75,10 +75,10 @@ Phases, one line each on stdout, in this order:
            its plan and bit layout; K1 at U = 1 and the largest U its plan
            takes, 4 and 16 label slots, dead and live selectors mixed; K5
            at fills of every residue modulo 16, a zero-row delta, one
-           delta of many segments, an empty table list, its staging arena
-           growing over consecutive flushes, two large flushes issued back
-           to back with no synchronize between them, and the mapped
-           route).
+           delta of many segments, an empty table list, consecutive
+           flushes of growing size, two large flushes issued back to back
+           with no synchronize between them, and a segment table it must
+           refuse).
 
 The line before the last is the kernel table as one JSON object; the last
 line is {"ok": true, "device": {...}}. Any failing phase raises, and the
@@ -94,10 +94,10 @@ floor) from the same profiler window; the SASS listing goes beside the
 built kernels (build/gatekeeper_tpu_torch/probe_sass_*.txt). K5 is timed
 on a flush in the recorded shape (DELTA_PROBE_TABLES) and on one 8 MiB
 delta: the kernel's device time, the staging copy's, and the wrapper's
-host ms per call, and the same for the mapped variant (K5 reading the
-pinned staging over the host link, no copy) where the tree has it; then
-the copy of a staging-sized pinned buffer as it lies and right after the
-host rewrote it.
+host ms per call, with the flushes issued back to back and again with a
+synchronize before each (so each copy reads a staging the host has just
+written, as a flush on the path does); then the copy of a staging-sized
+pinned buffer as it lies and right after the host rewrote it.
 """
 
 from __future__ import annotations
@@ -2256,16 +2256,19 @@ def _delta_edge_variants(r, t):
     return out
 
 
-def _delta_arena_checks():
-    """K5's staging reuse on the card, each flush against its plain
-    version: consecutive flushes of growing size (the arena grows), then
-    two large flushes issued back to back with no synchronize between them
-    (the second must wait for the first's copy before it rewrites the
-    staging), and the mapped route on the recorded probe shape.
-    -> {case: flushes checked}."""
+def _delta_staging_checks():
+    """K5's staging on the card, each flush against its plain version:
+    consecutive flushes of growing size, then two large flushes issued back
+    to back with no synchronize between them (the second must not rewrite
+    a pinned block whose copy is still in flight); and a segment table
+    that the entry point must refuse (one segment a byte longer than a
+    block), launching nothing. -> {case: flushes checked}."""
+    import ctypes
+
     import numpy as np
     import torch
     from gatekeeper_tpu_torch.kernels import ops
+    from gatekeeper_tpu_torch.kernels.build import library
 
     r = np.random.default_rng(17)
 
@@ -2276,8 +2279,6 @@ def _delta_arena_checks():
         return buf, fill, r.integers(-99, 99, (rows, width)).astype(np.int32)
 
     checked = {}
-    arena = ops._arena(torch.device("cuda", torch.cuda.current_device()))
-    caps = []
     for rows in (512, 4096, 65_536, 1_048_576):
         buf, fill, d = case(rows, 5, int(r.integers(0, 999)))
         want = ops.flush_deltas_plain([buf.clone()], [fill], [d])[0]
@@ -2285,10 +2286,7 @@ def _delta_arena_checks():
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"variants: K5 growth at {rows} rows differs")
-        caps.append(arena.cap)
         checked["growth"] = checked.get("growth", 0) + 1
-    if caps != sorted(caps) or caps[0] == caps[-1]:
-        raise AssertionError(f"variants: K5 arena did not grow: {caps}")
     # back to back: 24 MiB each, so the first copy is in flight while the
     # second flush packs
     a, b = case(393_216, 16, 1001), case(393_216, 16, 77)
@@ -2301,14 +2299,19 @@ def _delta_arena_checks():
     if not (torch.equal(got_a, want_a) and torch.equal(got_b, want_b)):
         raise AssertionError("variants: K5 back-to-back flushes differ")
     checked["back_to_back"] = 2
-    for _, bufs, fills, deltas in _delta_probe_cases("cuda"):
-        want = _flat(ops.flush_deltas_plain([x.clone() for x in bufs],
-                                            fills, deltas))
-        got = _flat(ops._flush_cuda(bufs, fills, deltas, mapped=True))
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError("variants: K5 mapped route differs")
-        checked["mapped"] = checked.get("mapped", 0) + 1
+    buf = torch.zeros((4 * ops.DELTA_SEG,), dtype=torch.uint8, device="cuda")
+    table = np.zeros((1,), ops.SEG_DTYPE)
+    table[0] = (buf.data_ptr(), 16, ops.DELTA_SEG + 1)
+    staging = torch.zeros((2 * ops.DELTA_SEG,), dtype=torch.uint8,
+                          device="cuda")
+    rc = library("delta").gk_flush_deltas(
+        table.ctypes.data_as(ctypes.c_void_p), staging.data_ptr(),
+        staging.numel(), 1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if rc != -1 or buf.any():
+        raise AssertionError(f"variants: K5 took a segment past its block "
+                             f"(rc {rc})")
+    checked["refused"] = 1
     return checked
 
 
@@ -2332,7 +2335,7 @@ def phase_variants():
     if not all(0.02 < m < 0.98 for m in match_rate[:3]):
         raise AssertionError(f"variants: match rates {match_rate}")
     print(json.dumps({"phase": "variants", "checked": checked,
-                      "delta_arena": _delta_arena_checks(),
+                      "delta_staging": _delta_staging_checks(),
                       "match_rates": match_rate}), flush=True)
 
 
@@ -2648,47 +2651,45 @@ def _delta_probe_cases(device):
 def _probe_delta(empty, root):
     """K5's probe rows: kernel ms (delta_kernel), copy ms (the one
     host-to-device copy of the staging), the launch floor in the same
-    window, and the wrapper's host ms per call; for a tree that has the
-    mapped variant (ops._flush_cuda), the same with the kernel reading the
-    pinned staging over the host link instead of a copy."""
+    window, and the wrapper's host ms per call, with the flushes issued
+    back to back ("copy_ms") and with a synchronize before each
+    ("copy_ms_synced": the host packs, then the copy reads the bytes it
+    has just written, as on the path, where one flush comes alone)."""
     import torch
     from gatekeeper_tpu_torch.kernels import ops
 
-    routes = {"parent": ops.flush_deltas}
-    if hasattr(ops, "_flush_cuda"):
-        routes = {
-            "copy": ops.flush_deltas,
-            "mapped": lambda b, f, d: ops._flush_cuda(b, f, d, mapped=True),
-        }
+    flush = ops.flush_deltas
     for label, bufs, fills, deltas in _delta_probe_cases("cuda"):
         want = _flat(ops.flush_deltas_plain([b.clone() for b in bufs], fills,
                                             deltas))
         nbytes = sum(d.nbytes for d in deltas)
-        for route, flush in routes.items():
-            got = _flat(flush([b.clone() for b in bufs], fills, deltas))
+        got = _flat(flush([b.clone() for b in bufs], fills, deltas))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"probe: {label} differs")
+
+        def both():
+            flush(bufs, fills, deltas)
+            empty()
+
+        def synced():
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"probe: {label} ({route}) differs")
+            both()
 
-            def both():
-                flush(bufs, fills, deltas)
-                empty()
-
-            names = ("delta_kernel", "empty_kernel")
-            if route != "mapped":
-                names += ("HtoD",)
-            split = _device_split(both, names)
-            host_ms = _time_ms(lambda: flush(bufs, fills, deltas), reps=20)
-            print(json.dumps({
-                "probe": label, "root": root, "route": route,
-                "bytes": nbytes, "kernel_ms": split["delta_kernel"],
-                "copy_ms": split.get("HtoD"), "floor_ms": split["empty_kernel"],
-                "host_ms": host_ms,
-                "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
-            }), flush=True)
-        plain_ms = _device_ms(
-            lambda: ops.flush_deltas_plain(bufs, fills, deltas), reps=3)
-        row = {"probe": label, "root": root, "plain_ms": plain_ms}
+        names = ("delta_kernel", "empty_kernel", "HtoD")
+        split = _device_split(both, names)
+        split_synced = _device_split(synced, names)
+        host_ms = _time_ms(lambda: flush(bufs, fills, deltas), reps=20)
+        row = {
+            "probe": label, "root": root, "bytes": nbytes,
+            "kernel_ms": split["delta_kernel"], "copy_ms": split["HtoD"],
+            "copy_ms_synced": split_synced["HtoD"],
+            "kernel_ms_synced": split_synced["delta_kernel"],
+            "floor_ms": split["empty_kernel"], "host_ms": host_ms,
+            "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+            "plain_ms": _device_ms(
+                lambda: ops.flush_deltas_plain(bufs, fills, deltas), reps=3),
+        }
         if hasattr(ops, "delta_plan"):
             row["host_split_ms"] = _delta_host_split(ops, bufs, fills, deltas)
         print(json.dumps(row), flush=True)
@@ -2727,9 +2728,7 @@ def _probe_staging_copy(nbytes: int = 655_664, buffers: int = 4):
 def _delta_host_split(ops, bufs, fills, deltas, reps: int = 50):
     """Host ms per call of the K5 wrapper's stages (host clock, no device
     work): the per-table checks and casts (_host_delta), the plan
-    (delta_plan), the packing (pack_deltas), and the packing with every
-    delta in one slice assignment, and with every delta by torch's copy_
-    (the two sides of PACK_PARALLEL_BYTES)."""
+    (delta_plan) and the packing (pack_deltas)."""
     import numpy as np
 
     def ms(fn):
@@ -2745,20 +2744,11 @@ def _delta_host_split(ops, bufs, fills, deltas, reps: int = 50):
     ds = tables()
     dsts = [b.data_ptr() + f * d.strides[0] for b, f, d in zip(bufs, fills, ds)]
     sizes = [d.nbytes for d in ds]
-    plan = ops.delta_plan(dsts, sizes, 132)
+    plan = ops.delta_plan(dsts, sizes)
     staging = np.empty((plan["total"],), np.uint8)
-    out = {"tables": ms(tables),
-           "plan": ms(lambda: ops.delta_plan(dsts, sizes, 132)),
-           "pack": ms(lambda: ops.pack_deltas(staging, plan, ds))}
-    saved = ops.PACK_PARALLEL_BYTES
-    try:
-        for key, limit in (("pack_one_slice_each", 1 << 62),
-                           ("pack_torch_copy_each", 0)):
-            ops.PACK_PARALLEL_BYTES = limit
-            out[key] = ms(lambda: ops.pack_deltas(staging, plan, ds))
-    finally:
-        ops.PACK_PARALLEL_BYTES = saved
-    return out
+    return {"tables": ms(tables),
+            "plan": ms(lambda: ops.delta_plan(dsts, sizes)),
+            "pack": ms(lambda: ops.pack_deltas(staging, plan, ds))}
 
 
 def _empty_kernel():

@@ -5,24 +5,26 @@
 // padded bucket, each device table receives only its new rows [fill, vlen)
 // (zero-padded to a multiple of 512 rows), all tables in one call. The host
 // packs every delta into one pinned staging buffer behind a segment table
-// (ops.delta_plan, ops.pack_deltas); the entry point below ships it with
-// one host-to-device copy and launches this kernel, which writes each
-// segment to its table. Casts happen on the host.
+// (ops.delta_plan, ops.pack_deltas) and ships it to the card with one
+// host-to-device copy; the entry point below checks the table and launches
+// this kernel, which writes each segment to its table. Casts happen on the
+// host.
 //
 // Segment: the destination address, the staging offset and the byte count.
-// The host cuts every delta at multiples of the plan's segment size (4 or
-// 8 KiB) in the destination's address space and places it in the staging
-// at an offset congruent to its destination modulo 16, so the aligned
-// 16-byte vectors of a segment line up at both ends and a segment spans at
-// most THREADS * VEC of them. The staging ends on a 16-byte boundary: the
-// vectors holding a segment's first and last bytes lie inside the staging.
+// The host cuts every delta at multiples of SEG_BYTES in the destination's
+// address space and places it in the staging at an offset congruent to its
+// destination modulo 16, so the aligned 16-byte vectors of a segment line
+// up at both ends and a segment spans at most THREADS * VEC of them. The
+// staging ends on a 16-byte boundary: the vectors holding a segment's first
+// and last bytes lie inside the staging.
 //
 // Bound: bytes (each delta byte read once and written once), but the
 // recorded flush (651,264 bytes) is below one launch floor of work, so what
 // the design fights is latency:
 //   * one block per segment, so the recorded flush spreads over every SM;
-//   * each thread issues the loads of all its VEC vectors before its first
-//     store: one round trip to memory per block, not one per 16 bytes;
+//   * each thread issues the loads of all its VEC vectors (one, in 4 KiB
+//     blocks: the fastest of the block shapes tried on the recorded flush)
+//     before its first store: one round trip to memory per block;
 //   * the headers of the first PARAM_SEGS segments ride in the kernel
 //     parameters, so a block's first data load depends on no load of its
 //     own (segments past PARAM_SEGS read theirs from the staging's head);
@@ -35,8 +37,9 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
-constexpr int THREADS = 256;
-constexpr int VEC = 2;  // 16-byte vectors per thread: 8 KiB per block
+constexpr int THREADS = 256;  // ops.DELTA_THREADS
+constexpr int VEC = 1;  // 16-byte vectors per thread (ops.DELTA_VEC)
+constexpr int SEG_BYTES = THREADS * VEC * 16;  // 4 KiB (ops.DELTA_SEG)
 constexpr int PARAM_SEGS = 248;
 
 struct Segment {
@@ -91,25 +94,30 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// `host`: the pinned staging, its segment table first (the first
+// `table`: the staging's segment table as the host packed it (the first
 // PARAM_SEGS entries go into the launch's parameters); `dev`: the staging
-// K5 reads. With `copy_bytes` > 0, its first `copy_bytes` are copied from
-// `host` to `dev` on `stream` first (one asynchronous copy); with 0, `dev`
-// is `host` itself, read over the host link (the mapped route).
-extern "C" int gk_flush_deltas(const void* host, void* dev,
-                               long long copy_bytes, int n_segs,
-                               void* stream) {
+// on the card, `total` bytes, already copied there on `stream`. Every
+// segment is checked first: a segment the kernel would move wrongly (more
+// bytes than a block, source and destination not congruent modulo 16, a
+// vector outside the staging) launches nothing and returns -1.
+extern "C" int gk_flush_deltas(const void* table, const void* dev,
+                               long long total, int n_segs, void* stream) {
   if (n_segs <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (copy_bytes > 0) {
-    cudaError_t rc = cudaMemcpyAsync(dev, host, (size_t)copy_bytes,
-                                     cudaMemcpyHostToDevice, st);
-    if (rc != cudaSuccess) return (int)rc;
+  const Segment* segs = static_cast<const Segment*>(table);
+  const unsigned long long head = 16ull * (unsigned long long)n_segs;
+  for (int i = 0; i < n_segs; ++i) {
+    const Segment& s = segs[i];
+    const unsigned long long lead = s.dst & 15;
+    if (s.n == 0 || lead + s.n > (unsigned long long)SEG_BYTES ||
+        (s.src & 15) != lead || s.src < head + lead ||
+        (((unsigned long long)s.src + s.n + 15) & ~15ull) >
+            (unsigned long long)total)
+      return -1;
   }
   Params p{};
-  p.base = (const uint8_t*)dev;
+  p.base = static_cast<const uint8_t*>(dev);
   p.n_param = n_segs < PARAM_SEGS ? n_segs : PARAM_SEGS;
-  std::memcpy(p.segs, host, sizeof(Segment) * p.n_param);
-  delta_kernel<<<n_segs, THREADS, 0, st>>>(p);
+  std::memcpy(p.segs, segs, sizeof(Segment) * p.n_param);
+  delta_kernel<<<n_segs, THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -886,27 +886,26 @@ def flush_deltas_plain(bufs: Sequence[torch.Tensor], fills: Sequence[int],
     return list(bufs)
 
 
-# K5's block (csrc/delta.cu): DELTA_THREADS threads move one segment,
-# DELTA_VEC 16-byte vectors each; the first DELTA_PARAM_SEGS segment
-# headers ride in the kernel parameters
+# K5's block (csrc/delta.cu): DELTA_THREADS threads move one segment of at
+# most DELTA_SEG bytes, DELTA_VEC 16-byte vectors each; the first
+# DELTA_PARAM_SEGS segment headers ride in the kernel parameters
 DELTA_THREADS = 256
-DELTA_VEC = 2
-DELTA_SEG_MAX = DELTA_THREADS * DELTA_VEC * 16  # 8 KiB
-DELTA_SEG_MIN = 4096
+DELTA_VEC = 1
+DELTA_SEG = DELTA_THREADS * DELTA_VEC * 16  # 4 KiB
 DELTA_PARAM_SEGS = 248
 # struct Segment of csrc/delta.cu
 SEG_DTYPE = np.dtype([("dst", "<u8"), ("src", "<u4"), ("n", "<u4")])
 
 
-def delta_plan(dsts: Sequence[int], sizes: Sequence[int], sms: int):
+def delta_plan(dsts: Sequence[int], sizes: Sequence[int]):
     """K5's launch plan for deltas of `sizes` bytes bound for the device
-    addresses `dsts`: -> dict(seg, table, starts, header, total).
+    addresses `dsts`: -> dict(table, starts, header, total).
 
-    seg: 8 KiB when the flush still gives every SM a segment at that size,
-    else 4 KiB. Each delta is cut at the multiples of seg in the
-    destination's address space, so a segment's offset from 16-byte
-    alignment plus its bytes never exceed seg: one block's threads move it
-    in DELTA_VEC vectors each. table: one SEG_DTYPE row per segment
+    Each delta is cut at the multiples of DELTA_SEG in the destination's
+    address space, so a segment's offset from 16-byte alignment plus its
+    bytes never exceed DELTA_SEG: one block's threads move it in DELTA_VEC
+    vectors each, and the recorded audit_churn flush (651,264 bytes) gives
+    every SM of an H100 a segment. table: one SEG_DTYPE row per segment
     (destination, staging offset, bytes), delta after delta. starts: each
     delta's staging offset, behind the table (`header` bytes) and
     congruent to its destination modulo 16; each delta's slot is padded to
@@ -915,7 +914,7 @@ def delta_plan(dsts: Sequence[int], sizes: Sequence[int], sms: int):
     slot."""
     dst = np.asarray(dsts, np.int64).reshape(-1)
     size = np.asarray(sizes, np.int64).reshape(-1)
-    seg = DELTA_SEG_MAX if int(size.sum()) >= sms * DELTA_SEG_MAX else DELTA_SEG_MIN
+    seg = DELTA_SEG
     live = size > 0
     first = dst // seg
     counts = np.where(live, (dst + size - 1) // seg - first + 1, 0)
@@ -937,108 +936,31 @@ def delta_plan(dsts: Sequence[int], sizes: Sequence[int], sms: int):
     table["dst"] = lo
     table["src"] = starts[di] + (lo - dst[di])
     table["n"] = hi - lo
-    return {"seg": seg, "table": table, "starts": starts, "header": header,
-            "total": total}
-
-
-# a delta of at least this many bytes is packed by torch's copy_, which
-# splits the copy over the host's threads (a slice assignment copies on
-# one; `chip_smoke.py --probe` times both on one 8 MiB delta)
-PACK_PARALLEL_BYTES = 1 << 20
+    return {"table": table, "starts": starts, "header": header, "total": total}
 
 
 def pack_deltas(staging: np.ndarray, plan, deltas: Sequence[np.ndarray]) -> None:
     """Write the plan's segment table and every delta (C-contiguous host
     arrays of the buffers' dtypes, as _host_delta gives them) into
     `staging` (uint8, at least plan["total"] bytes): one slice assignment
-    each, through a byte view of the staging (a torch view for deltas of
-    PACK_PARALLEL_BYTES or more)."""
+    each, through a byte view of the staging."""
     view = memoryview(staging)
     view[:plan["header"]] = plan["table"].view(np.uint8)
     for d, pos in zip(deltas, plan["starts"].tolist()):
-        n = d.nbytes
-        if n >= PACK_PARALLEL_BYTES:
-            torch.from_numpy(staging[pos:pos + n]).copy_(
-                torch.from_numpy(d.reshape(-1).view(np.uint8)))
-        elif n:
-            view[pos:pos + n] = memoryview(d).cast("B")
-
-
-def arena_capacity(cap: int, need: int) -> int:
-    """The staging capacity for `need` bytes: `cap` doubled until it holds
-    them (64 KiB at least)."""
-    cap = max(cap, 1 << 16)
-    while cap < need:
-        cap *= 2
-    return cap
-
-
-class _DeltaArena:
-    """K5's staging on one device across calls: a pinned host buffer and a
-    device buffer of one capacity (arena_capacity), and the event recorded
-    after the last copy and launch that read them. A flush waits for that
-    event before it writes either buffer again, so a flush issued while the
-    previous one's copy is still in flight cannot overwrite its bytes."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.lock = threading.Lock()
-        self.cap = 0
-        self.host: Optional[torch.Tensor] = None
-        self.host_np: Optional[np.ndarray] = None
-        self.dev: Optional[torch.Tensor] = None
-        self.done: Optional[torch.cuda.Event] = None
-
-    def acquire(self, nbytes: int) -> np.ndarray:
-        """The host buffer, free to write and holding `nbytes`."""
-        if self.done is not None:
-            self.done.synchronize()
-        if nbytes > self.cap:
-            self.cap = arena_capacity(self.cap, nbytes)
-            self.host = self.host_np = self.dev = None  # release the old pair
-            self.host = torch.empty((self.cap,), dtype=torch.uint8,
-                                    pin_memory=True)
-            self.host_np = self.host.numpy()
-            self.dev = torch.empty((self.cap,), dtype=torch.uint8,
-                                   device=self.device)
-        return self.host_np
-
-    def release(self, stream) -> None:
-        """Mark the buffers busy until `stream`'s work so far is done."""
-        if self.done is None:
-            self.done = torch.cuda.Event()
-        self.done.record(stream)
-
-
-_ARENAS: Dict[torch.device, _DeltaArena] = {}
-_ARENAS_LOCK = threading.Lock()
-
-
-def _arena(device: torch.device) -> _DeltaArena:
-    with _ARENAS_LOCK:
-        arena = _ARENAS.get(device)
-        if arena is None:
-            arena = _ARENAS[device] = _DeltaArena(device)
-        return arena
+        if d.nbytes:
+            view[pos:pos + d.nbytes] = memoryview(d).cast("B")
 
 
 def flush_deltas(bufs: Sequence[torch.Tensor], fills: Sequence[int],
                  deltas: Sequence[Any]) -> List[torch.Tensor]:
     """K5 wrapper: see flush_deltas_plain. On CUDA buffers every delta is
-    packed into the device's pinned staging behind the segment table of
-    its plan (delta_plan), shipped with ONE host-to-device copy, and
-    written by ONE launch of K5."""
+    packed into one pinned staging buffer behind the segment table of its
+    plan (delta_plan), shipped with ONE host-to-device copy, and written
+    by ONE launch of K5."""
     if not bufs:
         return []
     if not _on_cuda(*bufs):
         return flush_deltas_plain(bufs, fills, deltas)
-    return _flush_cuda(bufs, fills, deltas, mapped=False)
-
-
-def _flush_cuda(bufs, fills, deltas, mapped: bool) -> List[torch.Tensor]:
-    """flush_deltas on CUDA buffers. `mapped`: no copy, K5 reads the pinned
-    staging over the host link; the variant that `chip_smoke.py --probe`
-    times against the copy (PERF.md §6, PR 6), not used by the wrapper."""
     device = bufs[0].device
     ds, dsts = [], []
     for buf, fill, delta in zip(bufs, fills, deltas):
@@ -1052,25 +974,24 @@ def _flush_cuda(bufs, fills, deltas, mapped: bool) -> List[torch.Tensor]:
         ds.append(d)
         # a delta row is a buffer row: its stride is the row's bytes
         dsts.append(buf.data_ptr() + fill * d.strides[0])
-    plan = delta_plan(dsts, [d.nbytes for d in ds], _sms(device))
+    plan = delta_plan(dsts, [d.nbytes for d in ds])
     n_segs = plan["table"].shape[0]
     if not n_segs:
         return list(bufs)
     from .build import library
 
     lib = library("delta")
-    arena = _arena(device)
-    with arena.lock:
-        staging = arena.acquire(plan["total"])
-        pack_deltas(staging, plan, ds)
-        stream = torch.cuda.current_stream(device)
-        host = staging.ctypes.data
-        if mapped:
-            rc = lib.gk_flush_deltas(host, host, 0, n_segs, stream.cuda_stream)
-        else:
-            rc = lib.gk_flush_deltas(host, arena.dev.data_ptr(), plan["total"],
-                                     n_segs, stream.cuda_stream)
-        arena.release(stream)
+    # torch's caching host allocator hands this block out again only after
+    # the event that the non-blocking copy below records on the stream
+    host = torch.empty((plan["total"],), dtype=torch.uint8, pin_memory=True)
+    pack_deltas(host.numpy(), plan, ds)
+    dev = torch.empty((plan["total"],), dtype=torch.uint8, device=device)
+    dev.copy_(host, non_blocking=True)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.gk_flush_deltas(host.data_ptr(), dev.data_ptr(), plan["total"],
+                             n_segs, stream)
+    if rc < 0:
+        raise RuntimeError("flush_deltas: K5 refused the plan's segment table")
     _check(rc, "flush_deltas")
     LAUNCHES["flush_deltas"] += 1
     return list(bufs)

@@ -4,19 +4,19 @@ The kernel runs only on the card; what surrounds it is host numpy and is
 tested here:
 
   * `ops.delta_plan` covers every delta byte exactly once, keeps source
-    and destination congruent modulo 16, keeps every segment within the
-    plan's size (offset from alignment included), and picks 8 KiB segments
-    only where every SM still gets one; the recorded audit_churn flush
-    spreads over every SM with all its headers in the kernel parameters
-    (the probe's flush of its table count and bytes);
-  * `ops.arena_capacity` grows the staging by doubling;
+    and destination congruent modulo 16 and keeps every segment within
+    one block's DELTA_SEG bytes (offset from alignment included); the
+    recorded audit_churn flush spreads over every SM with all its headers
+    in the kernel parameters (the probe's flush of its table count and
+    bytes);
   * a numpy emulation of K5's moves (one block per segment, DELTA_VEC
     aligned 16-byte vectors a thread, head and tail vectors byte by byte,
     headers past DELTA_PARAM_SEGS read from the staging) over the staging
     that `ops.pack_deltas` writes reproduces `ops.flush_deltas_plain` byte
     for byte on seeded tables of all three types, at fills of every
-    residue modulo 16, in an arena reused across growing and shrinking
-    flushes without being cleared.
+    residue modulo 16, in a staging reused across growing and shrinking
+    flushes without being cleared (blocks rounded up to a power of two, as
+    torch's caching host allocator hands them out).
 """
 
 import numpy as np
@@ -30,7 +30,7 @@ from gatekeeper_tpu_torch.kernels import ops
 def _check_plan(dsts, sizes, plan):
     """The plan invariants; -> {delta index: sorted (offset, bytes)}."""
     table, starts = plan["table"], plan["starts"].tolist()
-    seg = plan["seg"]
+    seg = ops.DELTA_SEG
     assert plan["header"] == table.shape[0] * ops.SEG_DTYPE.itemsize
     assert plan["total"] % 16 == 0
     spans = {}
@@ -75,19 +75,15 @@ def test_delta_plan_covers_each_byte_once(seed):
         pos += int(r.integers(0, 600)) * 16 + int(r.integers(0, 16))
         dsts.append(pos)
         pos += sz
-    sms = int(r.choice([1, 8, 132]))
-    plan = ops.delta_plan(dsts, sizes, sms)
+    plan = ops.delta_plan(dsts, sizes)
     _check_plan(dsts, sizes, plan)
-    want = (ops.DELTA_SEG_MAX if sum(sizes) >= sms * ops.DELTA_SEG_MAX
-            else ops.DELTA_SEG_MIN)
-    assert plan["seg"] == want
-    assert ops.DELTA_SEG_MAX == ops.DELTA_THREADS * ops.DELTA_VEC * 16
+    assert ops.DELTA_SEG == ops.DELTA_THREADS * ops.DELTA_VEC * 16
 
 
 def test_delta_plan_empty_and_zero_rows():
-    plan = ops.delta_plan([], [], 132)
+    plan = ops.delta_plan([], [])
     assert plan["table"].shape == (0,) and plan["total"] == 0
-    plan = ops.delta_plan([4096 + 3, 9000], [0, 0], 132)
+    plan = ops.delta_plan([4096 + 3, 9000], [0, 0])
     assert plan["table"].shape == (0,) and plan["total"] == 0
 
 
@@ -107,18 +103,9 @@ def test_recorded_flush_spreads_over_every_sm():
             sizes.append(512 * row)
             pos += -(-131_072 * row // 512) * 512
     assert len(sizes) == 66 and sum(sizes) == 651_264
-    plan = ops.delta_plan(dsts, sizes, 132)
+    plan = ops.delta_plan(dsts, sizes)
     _check_plan(dsts, sizes, plan)
-    assert plan["seg"] == ops.DELTA_SEG_MIN
     assert 132 <= plan["table"].shape[0] <= ops.DELTA_PARAM_SEGS
-
-
-def test_arena_capacity_doubles():
-    caps, cap = [], 0
-    for need in (1000, 70_000, 70_000, 5_000_000, 100, 1 << 16):
-        cap = ops.arena_capacity(cap, need)
-        caps.append(cap)
-    assert caps == [1 << 16, 1 << 17, 1 << 17, 1 << 23, 1 << 23, 1 << 23]
 
 
 def _emulate_k5(staging, total, n_segs, mem):
@@ -160,19 +147,25 @@ def _tables(r, residues=range(16)):
     return bufs, fills, deltas
 
 
-def _plan(bufs, fills, deltas, sms=132):
+def _plan(bufs, fills, deltas):
     ds = [ops._host_delta(d, b, f) for b, f, d in zip(bufs, fills, deltas)]
     plan = ops.delta_plan(
         [b.data_ptr() + f * b.stride(0) * b.element_size()
-         for b, f in zip(bufs, fills)], [d.nbytes for d in ds], sms)
+         for b, f in zip(bufs, fills)], [d.nbytes for d in ds])
     return plan, ds
 
 
-def _flush_emulated(arena, bufs, fills, deltas):
-    """Pack into `arena` and move as K5 does; -> the plan."""
+def _block(nbytes):
+    """A staging block's size: a power of two, as torch's caching host
+    allocator rounds a request."""
+    return 1 << max(int(nbytes) - 1, 0).bit_length()
+
+
+def _flush_emulated(staging, bufs, fills, deltas):
+    """Pack into `staging` and move as K5 does; -> the plan."""
     plan, ds = _plan(bufs, fills, deltas)
-    assert plan["total"] <= arena.shape[0]
-    ops.pack_deltas(arena, plan, ds)
+    assert plan["total"] <= staging.shape[0]
+    ops.pack_deltas(staging, plan, ds)
     views = [(b.data_ptr(), b.numpy().reshape(-1).view(np.uint8)) for b in bufs]
 
     def mem(addr, n):
@@ -181,7 +174,7 @@ def _flush_emulated(arena, bufs, fills, deltas):
                 return v[addr - base:addr - base + n]
         raise AssertionError(f"write outside every buffer at {addr:#x}")
 
-    _emulate_k5(arena, plan["total"], plan["table"].shape[0], mem)
+    _emulate_k5(staging, plan["total"], plan["table"].shape[0], mem)
     return plan
 
 
@@ -192,28 +185,24 @@ def test_emulated_k5_equals_plain(seed):
     want = ops.flush_deltas_plain([b.clone() for b in bufs], fills, deltas)
     got = [b.clone() for b in bufs]
     total = _plan(got, fills, deltas)[0]["total"]
-    arena = np.full((ops.arena_capacity(0, total),), 0xA5, np.uint8)
-    plan = _flush_emulated(arena, got, fills, deltas)
+    staging = np.full((_block(total),), 0xA5, np.uint8)
+    plan = _flush_emulated(staging, got, fills, deltas)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    assert plan["seg"] == ops.DELTA_SEG_MIN
     # the fills reach every residue of the destination modulo 16 (but
     # the zero-row delta's, which has no segment)
     assert {int(d) & 15 for d in plan["table"]["dst"]} >= set(range(16)) - {
         (bufs[9].data_ptr() + fills[9]) & 15}
 
 
-def _min_bytes(deltas):
-    return min(d.nbytes for d in deltas)
-
-
-def test_emulated_k5_across_arena_growth():
-    """Flushes of growing and then shrinking size through one arena grown
-    by arena_capacity and never cleared (the stale bytes of a larger flush
-    stay behind a smaller one), one of them past DELTA_PARAM_SEGS
+@pytest.mark.parametrize("seed", [11, 12])
+def test_emulated_k5_across_arena_growth(seed):
+    """Flushes of growing and then shrinking size through one staging that
+    grows by whole blocks and is never cleared (the stale bytes of a larger
+    flush stay behind a smaller one), one of them past DELTA_PARAM_SEGS
     segments: each equals the plain version."""
-    r = np.random.default_rng(11)
-    arena = np.zeros((0,), np.uint8)
+    r = np.random.default_rng(seed)
+    staging = np.zeros((0,), np.uint8)
     caps = []
     for n_tabs, rows in ((1, 512), (4, 1024), (4, 60_000), (2, 512)):
         bufs, fills, deltas = [], [], []
@@ -225,20 +214,17 @@ def test_emulated_k5_across_arena_growth():
         want = ops.flush_deltas_plain([b.clone() for b in bufs], fills, deltas)
         got = [b.clone() for b in bufs]
         total = _plan(got, fills, deltas)[0]["total"]
-        if total > arena.shape[0]:
-            grown = np.full((ops.arena_capacity(arena.shape[0], total),),
-                            0x5A, np.uint8)
-            grown[:arena.shape[0]] = arena
-            arena = grown
-        caps.append(arena.shape[0])
-        plan = _flush_emulated(arena, got, fills, deltas)
+        if total > staging.shape[0]:
+            grown = np.full((_block(total),), 0x5A, np.uint8)
+            grown[:staging.shape[0]] = staging
+            staging = grown
+        caps.append(staging.shape[0])
+        plan = _flush_emulated(staging, got, fills, deltas)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-        if rows == 60_000:  # deltas packed by torch's copy_ as well
-            assert _min_bytes(deltas) >= ops.PACK_PARALLEL_BYTES
+        if rows == 60_000:
             assert plan["table"].shape[0] > ops.DELTA_PARAM_SEGS
-            assert plan["seg"] == ops.DELTA_SEG_MAX
-    assert caps == [1 << 16, 1 << 17, 1 << 23, 1 << 23]
+    assert caps == [1 << 14, 1 << 17, 1 << 23, 1 << 23]
 
 
 def test_host_delta_casts_only_where_the_type_differs():

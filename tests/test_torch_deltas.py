@@ -5,7 +5,7 @@
     table type, casts included;
   * the staging layout K5 reads on the card (`ops.delta_plan`): every
     delta lands at an offset congruent to its destination modulo 16,
-    segments stay within the plan's segment size and cover each delta
+    segments stay within one block (DELTA_SEG) and cover each delta
     exactly once (more in test_torch_delta_plan.py);
   * TorchDriver("cpu") across add/remove-data churn: the sweep after the
     churn ships only the new vocab rows (the driver's upload counters),
@@ -115,7 +115,7 @@ def test_delta_segments_layout(seed):
     ds.append(np.zeros((50_000, 3), np.int32))
     rows = [b.stride(0) * b.element_size() for b in bufs]
     dsts = [b.data_ptr() + f * r for b, f, r in zip(bufs, fills, rows)]
-    plan = ops.delta_plan(dsts, [d.nbytes for d in ds], sms=132)
+    plan = ops.delta_plan(dsts, [d.nbytes for d in ds])
     table, starts, header = plan["table"], plan["starts"], plan["header"]
     assert header == len(table) * 16 and header % 16 == 0
     assert plan["total"] >= header + sum(d.nbytes for d in ds)
@@ -124,7 +124,7 @@ def test_delta_segments_layout(seed):
                            table["n"].tolist()):
         i = max(j for j, d0 in enumerate(dsts) if d0 <= dst < d0 + ds[j].nbytes)
         off = dst - dsts[i]
-        assert 0 < n <= plan["seg"] and (dst & 15) + n <= plan["seg"]
+        assert 0 < n <= ops.DELTA_SEG and (dst & 15) + n <= ops.DELTA_SEG
         assert src == starts[i] + off
         # source and destination agree modulo 16 (aligned vector moves)
         assert (src - dst) % 16 == 0
