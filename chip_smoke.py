@@ -7,7 +7,13 @@ Phases, one line each on stdout, in this order:
 
   card     the card's name and power limit (nvidia-smi);
   build    nvcc builds every kernel of the path from csrc/ into
-           build/gatekeeper_tpu_torch/ (one nvcc per source, in parallel);
+           build/gatekeeper_tpu_torch/ (one nvcc per source, in parallel),
+           then gcc builds the C token flattener (native/flatten.c);
+  native   the C token flattener against the Python encoder: equal token
+           tables and vocab contents and order on 2,000 pods, 2,000
+           make_mixed objects and one review batch of 256 against an
+           OverlayVocab over a 100,000-pod corpus's vocab; the encode
+           seconds of both on that corpus;
   parity   1,000 pods x 50 constraints on TorchDriver("cuda"): 4 review
            batches of 64 identical to the port's own interpreter driver
            (RegoDriver);
@@ -22,6 +28,13 @@ Phases, one line each on stdout, in this order:
            equal to an AuditManager's over the interpreter driver; sweep 2
            must take the vocab-delta upload), and one direct-list sweep over
            a FakeCluster holding the churned state, reports equal;
+  webhook_parity  two WebhookServers on 127.0.0.1 over the parity clients
+           (a dryrun and a warn constraint added), one over TorchDriver, one
+           over the interpreter driver: 512 AdmissionReviews (violating and
+           compliant pods, an excluded namespace, DELETEs with an oldObject,
+           Gatekeeper's service account, /v1/admitlabel requests) from 64
+           threads over HTTP get equal response bodies by uid; every batch
+           takes the fused route and K1-K4 launch;
   full     the north-star deployment (100,000 pods x 500 constraints): one
            audit sweep (4 chunks of 32,768 rows) and 8 admission
            micro-batches of 256 reviews through Client.review_many, with
@@ -32,6 +45,14 @@ Phases, one line each on stdout, in this order:
   profile  device-busy against wall seconds (torch.profiler, CUDA
            activity) for a second, warm-corpus audit sweep and one more
            review batch, after the counted run;
+  webhook  the full phase's client behind WebhookServer(window_ms=2.0):
+           4,096 AdmissionReviews of new pods from 256 threads, then 1,024
+           from 16 threads, over HTTP keep-alive; per load the request
+           latency p50/p99/max, requests per second, batches and their mean
+           occupancy, and the driver's phase seconds summed over the
+           batches. No batch may fail or leave the fused route, the breaker
+           stays closed, K1-K4 launch, and 64 sampled responses equal the
+           interpreter's answer (Client.review_host);
   audit_churn  the audit controller at full width across cluster churn:
            the full phase's client, its last 20 constraints swapped for join
            constraints; sweep 1 takes a full table upload, then 1,000 pods
@@ -178,6 +199,8 @@ PATH_KERNELS = {
                     "flush_deltas", "gather_elem"),
     "inventory": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "full_output": ("match_matrix", "slab_gather", "egroup", "full_totals"),
+    "webhook_parity": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "webhook": ("match_matrix", "slab_gather", "egroup", "need_tail"),
 }
 
 # A two-array join in the shape of gatekeeper-library's
@@ -788,6 +811,8 @@ def phase_card():
 def phase_build():
     from gatekeeper_tpu_torch.kernels import build
 
+    from gatekeeper_tpu_torch import native
+
     t0 = time.perf_counter()
     logs = build.build_all()
     dt = time.perf_counter() - t0
@@ -795,8 +820,11 @@ def phase_build():
     with open(build.BUILD_DIR / "ptxas.txt", "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}.cu\n{log}\n")
+    t1 = time.perf_counter()
+    native.load_flatten_native()  # gcc: the C token flattener
     print(json.dumps({"phase": "build", "seconds": dt,
-                      "built": sorted(logs)}), flush=True)
+                      "built": sorted(logs),
+                      "native_seconds": time.perf_counter() - t1}), flush=True)
 
 
 def phase_parity(device: str, n_pods: int = 1000, n_constraints: int = 50,
@@ -1874,6 +1902,419 @@ def phase_profile(client, drv):
     }), flush=True)
 
 
+# -- the native flattener and the admission webhook ---------------------------
+
+TOKEN_FIELDS = ("spath", "idx0", "idx1", "kind", "vid", "vnum", "n_tokens",
+                "overflow")
+
+
+def _gk_reviews(objs):
+    """The review dicts TorchDriver encodes (the K8s target's gkReview of
+    each object), as the driver's encode phase receives them."""
+    from gatekeeper_tpu_torch.constraint import (
+        AugmentedUnstructured, K8sValidationTarget,
+    )
+
+    handler = K8sValidationTarget()
+    return [
+        handler.handle_review(
+            o if isinstance(o, AugmentedUnstructured) else AugmentedUnstructured(o)
+        )[1]
+        for o in objs
+    ]
+
+
+def _same_encoding(what, objs, v_c, v_py):
+    """Encode objs natively into v_c and in Python into v_py: the token
+    tables and the vocab contents and order must be equal."""
+    import numpy as np
+    from gatekeeper_tpu_torch.flatten.encoder import encode_token_table
+
+    got = encode_token_table(objs, v_c)
+    want = encode_token_table(objs, v_py, native=False)
+    for f in TOKEN_FIELDS:
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"native: {what}: {f} differs from Python")
+    if (v_c._strs != v_py._strs or v_c._ids != v_py._ids
+            or v_c._quantity != v_py._quantity):
+        raise AssertionError(f"native: {what}: vocab differs from Python")
+
+
+def phase_native(n_check: int = 2000, n_corpus: int = 100_000,
+                 batch: int = 256):
+    """The C token flattener against the Python encoder: equal token
+    tables and vocab on n_check pods, n_check make_mixed objects and one
+    review batch of `batch` against an OverlayVocab over the n_corpus-pod
+    corpus's vocab; the encode seconds of both on that corpus."""
+    from gatekeeper_tpu_torch.flatten.encoder import encode_token_table
+    from gatekeeper_tpu_torch.flatten.vocab import OverlayVocab, Vocab
+
+    t0 = time.perf_counter()
+    _same_encoding("pods", _gk_reviews(make_pod(i) for i in range(n_check)),
+                   Vocab(), Vocab())
+    _same_encoding("mixed", _gk_reviews(make_mixed(i) for i in range(n_check)),
+                   Vocab(), Vocab())
+    corpus = _gk_reviews(make_pod(i) for i in range(n_corpus))
+    seconds = {}
+    vocabs = {}
+    for enc in ("python", "native"):
+        vocabs[enc] = Vocab()
+        t1 = time.perf_counter()
+        encode_token_table(corpus, vocabs[enc], native=(enc == "native"))
+        seconds[enc] = time.perf_counter() - t1
+    if vocabs["native"]._strs != vocabs["python"]._strs:
+        raise AssertionError("native: corpus vocab differs from Python")
+    ov_c, ov_py = OverlayVocab(vocabs["native"]), OverlayVocab(vocabs["python"])
+    _same_encoding("overlay batch", _gk_reviews(review_batch(7, batch)),
+                   ov_c, ov_py)
+    if not ov_c._strs:
+        raise AssertionError("native: the overlay batch interned nothing")
+    print(json.dumps({
+        "phase": "native",
+        "checked": {"pods": n_check, "mixed": n_check, "overlay_batch": batch},
+        "overlay_strings": len(ov_c._strs),
+        "corpus_pods": n_corpus, "corpus_vocab": len(vocabs["native"]),
+        "token_table_seconds": seconds,
+        "speedup": seconds["python"] / seconds["native"],
+        "seconds": time.perf_counter() - t0,
+    }), flush=True)
+
+
+def admission_request(obj, uid, operation="CREATE", username="smoke-user",
+                      old_object=None):
+    """An AdmissionRequest for `obj` (for a DELETE, for `old_object`)."""
+    src = obj if obj is not None else old_object
+    group, _, version = src.get("apiVersion", "v1").rpartition("/")
+    meta = src.get("metadata") or {}
+    req = {
+        "uid": uid,
+        "kind": {"group": group, "version": version, "kind": src["kind"]},
+        "operation": operation,
+        "name": meta.get("name", ""),
+        "namespace": meta.get("namespace", ""),
+        "userInfo": {"username": username},
+        "object": obj,
+    }
+    if old_object is not None:
+        req["oldObject"] = old_object
+    return req
+
+
+def _envelope(req) -> bytes:
+    return json.dumps({"apiVersion": "admission.k8s.io/v1",
+                       "kind": "AdmissionReview", "request": req}).encode()
+
+
+def _drive_http(port: int, posts, threads: int, timeout: float = 300.0):
+    """POST each (path, body) of `posts` from `threads` threads, each over
+    one keep-alive connection, all started together.
+    -> (response bodies in order, latency seconds in order, wall seconds)."""
+    import http.client
+    import threading
+
+    bodies = [None] * len(posts)
+    lat = [0.0] * len(posts)
+    errors = []
+    start = threading.Barrier(threads + 1)
+
+    def worker(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+        try:
+            start.wait()
+            for i in range(k, len(posts), threads):
+                path, body = posts[i]
+                t = time.perf_counter()
+                conn.request("POST", path, body,
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read()
+                lat[i] = time.perf_counter() - t
+                if resp.status != 200:
+                    raise AssertionError(
+                        f"HTTP {resp.status} for request {i}: {data[:300]!r}")
+                bodies[i] = json.loads(data)
+        except Exception as e:  # reported below, after every thread ends
+            errors.append(e)
+        finally:
+            conn.close()
+
+    workers = [threading.Thread(target=worker, args=(k,), daemon=True)
+               for k in range(threads)]
+    for w in workers:
+        w.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for w in workers:
+        w.join(timeout)
+    wall = time.perf_counter() - t0
+    if any(w.is_alive() for w in workers):
+        raise AssertionError(f"HTTP load: a client thread outlived {timeout} s")
+    if errors:
+        raise AssertionError(
+            f"HTTP load: {len(errors)} client errors, first: {errors[0]!r}")
+    return bodies, lat, wall
+
+
+def _quantile(xs, q):
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
+
+
+def _response_fields(body):
+    r = body["response"]
+    status = r.get("status") or {}
+    return (r.get("allowed"), status.get("code"), status.get("message"),
+            r.get("warnings"))
+
+
+def _fused_failure(client, requests):
+    """The fused path's own exception for requests the webhook answered on
+    the host rung: client.review_many on them, called directly."""
+    import traceback
+
+    from gatekeeper_tpu_torch.constraint import K8sValidationTarget
+
+    handler = K8sValidationTarget()
+    reviews = [handler.augment_request(r) for r in requests[:256]]
+    try:
+        client.review_many(reviews)
+    except Exception:
+        return traceback.format_exc()
+    return "client.review_many on these requests raised nothing"
+
+
+def _check_served(what, server, metrics, client, requests):
+    """Every batch of `server` took the fused (`batched`) route: none
+    failed, none was degraded, the breaker is closed. Otherwise print the
+    fused path's own exception and fail."""
+    from gatekeeper_tpu_torch.faults import CLOSED
+
+    b = server.batcher
+    degraded = sum(v for k, v in metrics.snapshot()["counters"].items()
+                   if k.startswith("webhook_degraded_dispatch_total"))
+    if b.batch_failures or degraded or b.breaker.state != CLOSED:
+        print(_fused_failure(client, requests), file=sys.stderr, flush=True)
+        raise AssertionError(
+            f"{what}: {b.batch_failures} failed and {degraded} degraded "
+            f"batches, breaker {b.breaker.state}")
+
+
+def _parity_posts(n: int, excluded: str):
+    """Admission traffic for webhook_parity: new pods (violating and
+    compliant), pods in an excluded namespace, DELETEs with an oldObject,
+    Gatekeeper's service account, namespace-label requests."""
+    from gatekeeper_tpu_torch.webhook import IGNORE_LABEL
+    from gatekeeper_tpu_torch.webhook.policy import SERVICE_ACCOUNT
+
+    violators = (499, 503, 509, 521, 541)
+    posts = []
+    for j in range(n):
+        uid = f"par-{j}"
+        if j % 32 == 5:
+            ns = {"apiVersion": "v1", "kind": "Namespace",
+                  "metadata": {"name": ("kube-system", f"lbl{j}")[j % 2],
+                               "labels": {IGNORE_LABEL: "1"}}}
+            posts.append(("/v1/admitlabel",
+                          _envelope(admission_request(ns, uid))))
+            continue
+        i = 2_000_000 + j if j % 3 else violators[j % 5] * (j + 1)
+        obj = make_pod(i, name=f"par-{j}")
+        if j % 32 == 9:
+            obj["metadata"]["namespace"] = excluded
+        if j % 32 == 13:
+            req = admission_request(None, uid, operation="DELETE",
+                                    old_object=obj)
+        elif j % 64 == 17:
+            req = admission_request(obj, uid, username=SERVICE_ACCOUNT)
+        else:
+            req = admission_request(obj, uid)
+        posts.append(("/v1/admit", _envelope(req)))
+    return posts
+
+
+def phase_webhook_parity(port, ref, drv, n: int = 512, threads: int = 64):
+    """Two WebhookServers on 127.0.0.1 over the parity clients, one over
+    TorchDriver, one over the interpreter driver, with a dryrun and a
+    warn constraint added to both: n AdmissionReviews from `threads`
+    threads over HTTP must get equal response bodies by uid, and every
+    batch of both must take the fused (`batched`) route. -> the kernel
+    launches of the TorchDriver server's run."""
+    from gatekeeper_tpu_torch.control import Excluder
+    from gatekeeper_tpu_torch.kernels import ops
+    from gatekeeper_tpu_torch.metrics import MetricsRegistry
+    from gatekeeper_tpu_torch.webhook import WebhookServer
+
+    t0 = time.perf_counter()
+    pod_match = {"kinds": [{"apiGroups": [""], "kinds": ["Pod"]}]}
+    extra = [
+        {"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+         "kind": "GTNoLatestTag", "metadata": {"name": "latest-dryrun"},
+         "spec": {"enforcementAction": "dryrun", "match": pod_match}},
+        {"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+         "kind": "K8sRequiredLabels", "metadata": {"name": "tier-warn"},
+         "spec": {"enforcementAction": "warn", "match": pod_match,
+                  "parameters": {"labels": [{"key": "tier"}]}}},
+    ]
+    for c in (port, ref):
+        for doc in extra:
+            c.add_constraint(doc)
+    posts = _parity_posts(n, excluded="ns7")
+    requests = [json.loads(b)["request"] for _, b in posts]
+    out = {}
+    launches = {}
+    for name, client in (("torch", port), ("interp", ref)):
+        excluder = Excluder()
+        excluder.add([{"processes": ["webhook"], "excludedNamespaces": ["ns7"]}])
+        metrics = MetricsRegistry()
+        server = WebhookServer(client, TARGET, window_ms=2.0, metrics=metrics,
+                               excluder=excluder,
+                               exempt_namespaces=["kube-system"])
+        server.start()
+        try:
+            ops.reset_launches()
+            bodies, lat, wall = _drive_http(server.port, posts, threads)
+            launches[name] = dict(ops.LAUNCHES)
+        finally:
+            server.stop()
+        _check_served(f"webhook_parity ({name})", server, metrics, client,
+                      requests)
+        out[name] = {
+            "by_uid": {b["response"]["uid"]: _response_fields(b) for b in bodies},
+            "batches": server.batcher.batches_dispatched,
+            "requests_batched": server.batcher.requests_batched,
+            "wall_s": wall, "p50_s": _quantile(lat, 0.5),
+            "p99_s": _quantile(lat, 0.99),
+        }
+    got, want = out["torch"]["by_uid"], out["interp"]["by_uid"]
+    if len(got) != len(posts) or got != want:
+        bad = sorted(u for u in want if got.get(u) != want[u])[:5]
+        raise AssertionError(f"webhook_parity: bodies differ for {bad}")
+    if drv.device.type == "cuda":
+        missing = [k for k in PATH_KERNELS["webhook_parity"]
+                   if launches["torch"][k] <= 0]
+        if missing:
+            raise AssertionError(
+                f"webhook_parity: kernels never launched: {missing}")
+    codes = {}
+    for _, code, _, _ in got.values():
+        codes[str(code or 200)] = codes.get(str(code or 200), 0) + 1
+    print(json.dumps({
+        "phase": "webhook_parity", "requests": len(posts), "threads": threads,
+        "codes": codes, "launches": launches["torch"],
+        **{name: {k: v for k, v in o.items() if k != "by_uid"}
+           for name, o in out.items()},
+        "seconds": time.perf_counter() - t0,
+    }), flush=True)
+    return launches["torch"]
+
+
+def webhook_posts(seed: int, n: int):
+    """n AdmissionReviews of new pods from the review_batch generator
+    (strings the corpus never interned), with unique uids.
+    -> (posts, requests)."""
+    posts, requests = [], []
+    for b in range(0, n, 256):
+        for j, aug in enumerate(review_batch(1000 * seed + b // 256,
+                                             min(256, n - b))):
+            req = admission_request(aug.object, f"wh-{seed}-{b + j}")
+            requests.append(req)
+            posts.append(("/v1/admit", _envelope(req)))
+    return posts, requests
+
+
+def _expected_response(client, request):
+    """What the webhook must answer for `request`: the deny results of
+    client.review_host (the interpreter), as ValidationHandler renders
+    them."""
+    from gatekeeper_tpu_torch.constraint import K8sValidationTarget
+
+    review = K8sValidationTarget().augment_request(request)
+    results = client.review_host(review).by_target[TARGET].results
+    msgs = [f"[denied by {r.constraint['metadata']['name']}] {r.msg}"
+            for r in results if r.enforcement_action == "deny"]
+    if msgs:
+        return (False, 403, "\n".join(msgs), None)
+    return (True, None, None, None)
+
+
+def phase_webhook(client, drv, loads=((4096, 256), (1024, 16)),
+                  n_sample: int = 64):
+    """The full phase's client (100,000 pods x 500 constraints) behind
+    WebhookServer(window_ms=2.0): for each (requests, threads) of `loads`,
+    new pods POSTed over keep-alive connections; request latency
+    p50/p99/max, requests per second, batches and their mean occupancy,
+    and the driver's phase seconds summed over the batches. Every batch
+    must take the fused (`batched`) route, K1-K4 must launch, and
+    n_sample responses must equal the interpreter's answer
+    (client.review_host). -> the kernel launches of the phase."""
+    from gatekeeper_tpu_torch.kernels import ops
+    from gatekeeper_tpu_torch.metrics import MetricsRegistry
+    from gatekeeper_tpu_torch.webhook import WebhookServer
+
+    t0 = time.perf_counter()
+    phases = {}
+    review_many = client.review_many
+
+    def summed(*a, **kw):  # the batcher's one worker thread calls this
+        out = review_many(*a, **kw)
+        for k, v in drv.stats.get("phase_seconds", {}).items():
+            phases[k] = phases.get(k, 0.0) + v
+        return out
+
+    metrics = MetricsRegistry()
+    server = WebhookServer(client, TARGET, window_ms=2.0, metrics=metrics)
+    client.review_many = summed
+    server.start()
+    rows, sample = [], []
+    try:
+        ops.reset_launches()
+        for seed, (n, threads) in enumerate(loads):
+            posts, requests = webhook_posts(seed, n)
+            b0 = server.batcher.batches_dispatched
+            r0 = server.batcher.requests_batched
+            l0 = dict(ops.LAUNCHES)
+            phases.clear()
+            bodies, lat, wall = _drive_http(server.port, posts, threads)
+            batches = server.batcher.batches_dispatched - b0
+            served = server.batcher.requests_batched - r0
+            if served != n:
+                raise AssertionError(
+                    f"webhook: {served} of {n} requests took the batched route")
+            rows.append({
+                "requests": n, "threads": threads, "wall_s": wall,
+                "rps": n / wall, "p50_s": _quantile(lat, 0.5),
+                "p99_s": _quantile(lat, 0.99), "max_s": max(lat),
+                "batches": batches, "mean_occupancy": served / batches,
+                "denied": sum(not b["response"]["allowed"] for b in bodies),
+                "phase_seconds": dict(phases),
+                "launches": {k: v - l0[k] for k, v in ops.LAUNCHES.items()},
+            })
+            step = max(1, n * len(loads) // n_sample)
+            sample += [(requests[i], bodies[i]) for i in range(0, n, step)]
+        launches = dict(ops.LAUNCHES)
+    finally:
+        server.stop()
+        del client.review_many
+    _check_served("webhook", server, metrics, client, [r for r, _ in sample])
+    if drv.device.type == "cuda":
+        missing = [k for k in PATH_KERNELS["webhook"] if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"webhook: kernels never launched: {missing}")
+    t1 = time.perf_counter()
+    for req, body in sample[:n_sample]:
+        if _response_fields(body) != _expected_response(client, req):
+            raise AssertionError(
+                f"webhook: response to {req['uid']} differs from review_host")
+    print(json.dumps({
+        "phase": "webhook", "loads": rows, "launches": launches,
+        "sample_checked": min(len(sample), n_sample),
+        "sample_seconds": time.perf_counter() - t1,
+        "breaker": server.batcher.breaker.state,
+        "seconds": time.perf_counter() - t0,
+    }), flush=True)
+    return launches
+
+
 def _match_battery(seed: int, u: int, n: int, width: int = 4,
                    cover: bool = True):
     """Seeded encoded match specs and review features over a tiny id
@@ -2883,12 +3324,15 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     phase_card()
     phase_build()
+    phase_native()
     port, ref, drv = phase_parity("cuda")
     launches_subset = phase_subset(port, ref, drv)
     phase_audit_parity(port, ref, drv)
+    launches_wh_parity = phase_webhook_parity(port, ref, drv)
     del port, ref, drv
     rec, launches_full, client, drv = phase_full("cuda")
     phase_profile(client, drv)
+    launches_webhook = phase_webhook(client, drv)
     launches_churn = phase_audit_churn(client, drv, rec)
     del client, drv  # the pod-only cluster; the mixed one comes next
     torch.cuda.empty_cache()
@@ -2896,7 +3340,8 @@ def main() -> int:
     client, drv, pairs, launches_inv = phase_inventory("cuda", rec)
     launches_out = phase_full_output(client, drv, rec, pairs)
     rows = phase_kernels(
-        rec, {"subset": launches_subset, "full": launches_full,
+        rec, {"subset": launches_subset, "webhook_parity": launches_wh_parity,
+              "full": launches_full, "webhook": launches_webhook,
               "audit_churn": launches_churn,
               "inventory": launches_inv, "full_output": launches_out}
     )

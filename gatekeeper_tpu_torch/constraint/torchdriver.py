@@ -25,7 +25,9 @@ whole inventory (`stats["pruned_renders"]`).
 Every micro-batch goes to the device: PyTorch compiles nothing, so there
 is no cold kernel to serve around. A partition-scoped review
 (`query_many_subset`) is one fused dispatch of a constraint set cut to the
-subset. Not carried over from TpuDriver (see ROADMAP.md): the static
+subset. Reviews encode with the C token flattener (native/flatten.c, built
+with gcc on first use; a failed build raises) unless the caller passes
+encoder="python". Not carried over from TpuDriver (see ROADMAP.md): the static
 analyzer's routing and feature liveness, fault injection, external data (a
 program reading "extdata:" row features raises NotImplementedError),
 integrity canaries, cost attribution, metrics and the partition plane
@@ -132,8 +134,15 @@ class TorchDriver(RegoDriver):
     """Fused-path driver on one CUDA device (or, when the caller asks,
     on the CPU through the kernels' plain versions)."""
 
-    def __init__(self, device: Any = None):
+    def __init__(self, device: Any = None, encoder: str = "native"):
         super().__init__()
+        if encoder not in ("native", "python"):
+            raise ValueError(
+                f"TorchDriver: encoder must be 'native' or 'python', got "
+                f"{encoder!r}"
+            )
+        # "python" is the caller's explicit request for the Python encoder
+        self.encoder = encoder
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -373,7 +382,9 @@ class TorchDriver(RegoDriver):
         if vocab is None:
             vocab = self.vocab
         handler = self._handler(target)
-        table = encode_token_table(reviews, vocab)
+        table = encode_token_table(
+            reviews, vocab, native=(self.encoder == "native")
+        )
         feats = [
             handler.encode_review_features(r, ns_cache, vocab) for r in reviews
         ]

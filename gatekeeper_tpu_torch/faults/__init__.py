@@ -1,6 +1,32 @@
-"""Deterministic fault injection: the named fault points the audit manager
-fires (a subset of gatekeeper_tpu/faults)."""
+"""Robustness toolkit of the admission plane (a subset of
+gatekeeper_tpu/faults): deterministic fault injection (`injection.py`, the
+named fault points the audit manager and the micro-batcher fire), the
+device circuit breaker (`breaker.py`) and the overload/degradation error
+taxonomy (`errors.py`)."""
 
+from .breaker import CLOSED, HALF_OPEN, OPEN, CircuitBreaker
+from .errors import (
+    AdmissionUnavailable,
+    DeadlineExceeded,
+    EvaluationTimeout,
+    EvaluationUnavailable,
+    ShedError,
+)
 from .injection import FAULTS, FaultError, FaultRegistry, FaultSpec, fire
 
-__all__ = ["FAULTS", "FaultError", "FaultRegistry", "FaultSpec", "fire"]
+__all__ = [
+    "AdmissionUnavailable",
+    "CircuitBreaker",
+    "CLOSED",
+    "DeadlineExceeded",
+    "EvaluationTimeout",
+    "EvaluationUnavailable",
+    "FAULTS",
+    "FaultError",
+    "FaultRegistry",
+    "FaultSpec",
+    "HALF_OPEN",
+    "OPEN",
+    "ShedError",
+    "fire",
+]

@@ -1,5 +1,8 @@
 # Copied from gatekeeper_tpu/flatten/encoder.py; only imports and the edits noted in this header differ.
-# Edit: the native C flattener path is dropped; encoding is pure Python.
+# Edit: encode_token_table takes native=True (the C flattener, native/flatten.c)
+# and runs the Python encoder only when the caller passes native=False or a
+# row carries ingest preflattened rows; a native build or encode failure
+# raises instead of falling back to the Python encoder.
 """Review/object encoders: JSON → dense numpy columns.
 
 Two encodings:
@@ -151,10 +154,32 @@ class TokenTable:
         return self.spath.shape
 
 
+def _carries_preflat(obj: Any) -> bool:
+    """True when `obj` is — or holds at top level — an ingest
+    LazyObject. The C flattener walks raw dict storage and would see
+    only the lifted keys of a lazy object; such batches must take the
+    Python path, where flatten_leaves re-roots the scanned rows."""
+    if getattr(obj, "_preflat_rows", None) is not None:
+        return True
+    if type(obj) is dict:
+        for v in obj.values():
+            if getattr(v, "_preflat_rows", None) is not None:
+                return True
+    return False
+
+
 def encode_token_table(
-    objs: Sequence[Any], vocab: Vocab, max_len: Optional[int] = None
+    objs: Sequence[Any], vocab: Vocab, max_len: Optional[int] = None,
+    native: bool = True,
 ) -> TokenTable:
+    """Token table of `objs`, interning into `vocab`. native=True encodes
+    with the C flattener (built on first use; a build failure raises);
+    native=False is the caller's request for the Python encoder."""
     objs = list(objs)
+    if native and not any(_carries_preflat(o) for o in objs):
+        return _encode_token_table_native(
+            _flatten_native(), objs, vocab, max_len
+        )
     rows = []
     for obj in objs:
         row = []
@@ -194,6 +219,73 @@ def encode_token_table(
             vid[n, l] = v
             vnum[n, l] = num
     return TokenTable(spath, idx0, idx1, kind, vid, vnum, n_tokens, overflow)
+
+
+def _flatten_native():
+    from ..native import load_flatten_native
+
+    return load_flatten_native()
+
+
+def _encode_token_table_native(
+    native, objs: list, vocab: Vocab, max_len: Optional[int]
+) -> TokenTable:
+    """C flattener path: flat columns + row offsets from the extension,
+    padded into [N, L] with vectorized scatter."""
+    from .vocab import parse_quantity
+
+    base = getattr(vocab, "base", None)
+    if base is not None:
+        # OverlayVocab chain mode: local structures + read-only base
+        # dict; the C intern assigns offset ids exactly like
+        # OverlayVocab.intern
+        sp_b, i0_b, i1_b, k_b, v_b, num_b, off_b = native.encode_rows(
+            objs, vocab._ids, vocab._strs, vocab._quantity,
+            parse_quantity, base._ids, vocab.base_len,
+        )
+    else:
+        sp_b, i0_b, i1_b, k_b, v_b, num_b, off_b = native.encode_rows(
+            objs, vocab._ids, vocab._strs, vocab._quantity, parse_quantity
+        )
+    flat_sp = np.frombuffer(sp_b, np.int32)
+    flat_i0 = np.frombuffer(i0_b, np.int32)
+    flat_i1 = np.frombuffer(i1_b, np.int32)
+    flat_k = np.frombuffer(k_b, np.int32)
+    flat_v = np.frombuffer(v_b, np.int32)
+    flat_num = np.frombuffer(num_b, np.float32)
+    off = np.frombuffer(off_b, np.int32)
+    N = len(objs)
+    lens = off[1:] - off[:-1]
+    longest = int(lens.max(initial=0))
+    L = max_len if max_len is not None else _bucket(max(longest, 1), lo=32)
+    overflow = lens > L
+    n_tokens = lens.astype(np.int32)
+    keep = np.minimum(lens, L).astype(np.int64)
+    # (row, col) scatter indices for every kept token, fully vectorized:
+    # cols restart at 0 per row (ramp minus per-row start), src follows
+    # the flat row offsets
+    rows_idx = np.repeat(np.arange(N), keep)
+    starts = np.concatenate([[0], np.cumsum(keep)[:-1]]) if N else (
+        np.zeros((0,), np.int64)
+    )
+    ramp = np.arange(int(keep.sum()), dtype=np.int64)
+    cols_idx = ramp - np.repeat(starts, keep)
+    src = np.repeat(off[:-1].astype(np.int64), keep) + cols_idx
+    spath = np.full((N, L), -1, np.int32)
+    idx0 = np.full((N, L), -1, np.int32)
+    idx1 = np.full((N, L), -1, np.int32)
+    kind = np.full((N, L), -1, np.int32)
+    vid = np.full((N, L), -1, np.int32)
+    vnum = np.zeros((N, L), np.float32)
+    spath[rows_idx, cols_idx] = flat_sp[src]
+    idx0[rows_idx, cols_idx] = flat_i0[src]
+    idx1[rows_idx, cols_idx] = flat_i1[src]
+    kind[rows_idx, cols_idx] = flat_k[src]
+    vid[rows_idx, cols_idx] = flat_v[src]
+    vnum[rows_idx, cols_idx] = flat_num[src]
+    return TokenTable(
+        spath, idx0, idx1, kind, vid, vnum, n_tokens, overflow.astype(bool)
+    )
 
 
 def mask_token_table(

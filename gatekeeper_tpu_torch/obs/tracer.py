@@ -1,7 +1,8 @@
 # Copied from gatekeeper_tpu/obs/tracer.py; only these edits differ.
-# Edit: the W3C traceparent helpers, the JSON/OTLP exporters,
-# Tracer.size/clear and span_breakdown are left out (the audit manager
-# records spans and tests read them back with recent/get).
+# Edit: the JSON/OTLP exporters, Tracer.size/clear and span_breakdown are
+# left out (the audit manager and the webhook record spans and tests read
+# them back with recent/get); of the OTLP id helpers only _otlp_id, which
+# format_traceparent reads, is kept.
 """In-process request tracing: spans, traces, ring-buffer retention.
 
 The enforcement plane must be able to account for every decision it
@@ -30,10 +31,66 @@ Design constraints that shaped it:
 
 from __future__ import annotations
 
+import hashlib
 import itertools
+import re
 import threading
 import time
 from typing import Any, Dict, List, NamedTuple, Optional
+
+# W3C Trace Context (https://www.w3.org/TR/trace-context/): version 00,
+# 32 lowercase-hex trace id, 16 lowercase-hex parent id, 2-hex flags.
+# All-zero ids are explicitly invalid per spec.
+_TRACEPARENT_RE = re.compile(
+    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$"
+)
+
+
+def parse_traceparent(header: Optional[str]) -> Optional[str]:
+    """The trace id from a W3C `traceparent` header, or None when the
+    header is absent/malformed (an invalid header MUST be ignored per
+    spec — the request then gets a derived or fresh trace id)."""
+    if not header:
+        return None
+    m = _TRACEPARENT_RE.match(header.strip().lower())
+    if m is None or m.group(1) == "ff":
+        return None
+    tid = m.group(2)
+    if tid == "0" * 32 or m.group(3) == "0" * 16:
+        return None
+    return tid
+
+
+def derive_trace_id(seed: Optional[str]) -> Optional[str]:
+    """Deterministic 32-hex trace id from a stable request identity
+    (the admission UID): a caller that sent no `traceparent` still gets
+    a trace id any hop holding the same UID can reconstruct."""
+    if not seed:
+        return None
+    return hashlib.sha256(str(seed).encode()).hexdigest()[:32]
+
+
+def format_traceparent(trace_id: str, span_seed: str = "") -> str:
+    """A well-formed `traceparent` response header for `trace_id`
+    (padded/derived to 32 hex); the parent-id half is derived — this
+    engine's span ids are not 16-hex, and the header only needs to name
+    the trace, not a resumable span."""
+    tid = _otlp_id(trace_id, 32)
+    sid = hashlib.sha256((trace_id + span_seed).encode()).hexdigest()[:16]
+    return f"00-{tid}-{sid}-01"
+
+
+def _otlp_id(raw: Optional[str], width: int) -> str:
+    """Map an internal id to the fixed-width lowercase-hex form OTLP
+    requires: ids that are already hex (W3C-ingested trace ids) pass
+    through zero-padded; everything else hashes deterministically."""
+    if not raw:
+        return "0" * width
+    s = str(raw).lower()
+    if re.fullmatch(r"[0-9a-f]+", s) and len(s) <= width:
+        return s.zfill(width)
+    return hashlib.sha256(s.encode()).hexdigest()[:width]
+
 
 class SpanContext(NamedTuple):
     """The cross-thread handle: enough to parent a child span."""

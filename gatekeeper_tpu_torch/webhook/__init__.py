@@ -1,0 +1,20 @@
+"""Admission webhook layer (a subset of gatekeeper_tpu/webhook).
+
+Counterpart of pkg/webhook/: the validating handler (policy.py, a copy),
+the namespace-label guard (namespacelabel.py, a copy) and the
+micro-batching bridge that coalesces concurrent AdmissionReviews into one
+fused device dispatch (server.py: `MicroBatcher` -> `Client.review_many`
+on TorchDriver, served over HTTP by `WebhookServer`). Mutation, the agent
+plane, certificates and the ingest front are not ported (ROADMAP A3, A5,
+A10).
+"""
+
+from .policy import AdmissionResponse, TraceConfig, ValidationHandler
+from .namespacelabel import IGNORE_LABEL, NamespaceLabelHandler
+from .server import MicroBatcher, WebhookServer, review_envelope
+
+__all__ = [
+    "AdmissionResponse", "IGNORE_LABEL", "MicroBatcher",
+    "NamespaceLabelHandler", "TraceConfig", "ValidationHandler",
+    "WebhookServer", "review_envelope",
+]

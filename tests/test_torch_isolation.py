@@ -94,6 +94,59 @@ def test_audit_plane_imports_with_jax_blocked():
     assert int(out.stdout.strip().splitlines()[-1]) > 0
 
 
+ADMISSION_PLANE = (
+    "gatekeeper_tpu_torch.webhook",
+    "gatekeeper_tpu_torch.webhook.policy",
+    "gatekeeper_tpu_torch.webhook.namespacelabel",
+    "gatekeeper_tpu_torch.webhook.server",
+    "gatekeeper_tpu_torch.metrics",
+    "gatekeeper_tpu_torch.metrics.registry",
+    "gatekeeper_tpu_torch.faults",
+    "gatekeeper_tpu_torch.faults.breaker",
+    "gatekeeper_tpu_torch.faults.errors",
+    "gatekeeper_tpu_torch.native",
+)
+
+
+def test_admission_plane_imports_with_jax_blocked():
+    """The webhook, metrics, faults and native subpackages import, the
+    native flattener builds and encodes, and a WebhookServer answers an
+    AdmissionReview over HTTP on the CPU, in an interpreter where
+    importing jax or the JAX package fails."""
+    assert set(ADMISSION_PLANE) <= set(_modules())
+    code = (
+        "import importlib, json, sys, urllib.request\n"
+        "for m in ('jax', 'jaxlib', 'gatekeeper_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {ADMISSION_PLANE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from gatekeeper_tpu_torch.native import load_flatten_native\n"
+        "from gatekeeper_tpu_torch.webhook import WebhookServer\n"
+        "from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver\n"
+        "assert hasattr(load_flatten_native(), 'encode_rows')\n"
+        "c = chip_smoke.build_client(TorchDriver(device='cpu'), 30, 8)\n"
+        "s = WebhookServer(c, chip_smoke.TARGET)\n"
+        "s.start()\n"
+        "pod = chip_smoke.make_pod(503)\n"
+        "req = {'uid': 'u', 'operation': 'CREATE', 'object': pod,\n"
+        "       'kind': {'group': '', 'version': 'v1', 'kind': 'Pod'},\n"
+        "       'userInfo': {'username': 'u'}}\n"
+        "body = json.dumps({'request': req}).encode()\n"
+        "url = f'http://127.0.0.1:{s.port}/v1/admit'\n"
+        "out = json.loads(urllib.request.urlopen(url, body, timeout=60).read())\n"
+        "s.stop()\n"
+        "print(out['response']['allowed'], s.batcher.batches_dispatched)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "1"]
+
+
 def test_entry_and_inventory_joins_run_with_jax_blocked():
     """The harness step (gatekeeper_tpu_torch.entry) and an audit over the
     uniqueness joins run on the CPU in an interpreter where importing jax
