@@ -105,6 +105,16 @@ The line before the last is the kernel table as one JSON object; the last
 line is {"ok": true, "device": {...}}. Any failing phase raises, and the
 script exits nonzero without that line; so does a machine without CUDA.
 
+    python3 chip_smoke.py --full [--tree DIR]
+
+runs card, build and the full phase alone, from DIR's chip_smoke.py and
+package (another checkout of this repo) if given. Parent against change in
+one call, from the root of this checkout, with the parent unpacked into
+build/parent (git archive):
+
+    for t in build/parent . . build/parent; do
+        python3 chip_smoke.py --full --tree $t; done
+
     python3 chip_smoke.py --probe [--tree DIR]
 
 builds K1-K5 alone (from DIR, another checkout of this repo, if given),
@@ -3306,6 +3316,23 @@ def phase_probe(tree=None):
     _probe_staging_copy()
 
 
+def phase_full_alone(tree=None):
+    """Card, build and full from `tree` (a checkout of this repo; default
+    this one): its chip_smoke.py runs them against its own package."""
+    import importlib.util
+
+    root = os.path.abspath(tree or ROOT)
+    print(json.dumps({"phase": "tree", "root": root}), flush=True)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_tree", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.phase_card()
+    smoke.phase_build()
+    smoke.phase_full("cuda")
+
+
 def main() -> int:
     import torch
 
@@ -3316,6 +3343,10 @@ def main() -> int:
         tree = sys.argv[sys.argv.index("--tree") + 1] if "--tree" in sys.argv else None
         phase_card()
         phase_probe(tree)
+        return 0
+    if "--full" in sys.argv:
+        phase_full_alone(sys.argv[sys.argv.index("--tree") + 1]
+                         if "--tree" in sys.argv else None)
         return 0
     if not os.path.isdir(os.path.join(ROOT, "gatekeeper_tpu_torch")):
         print("chip_smoke: gatekeeper_tpu_torch not found beside this "

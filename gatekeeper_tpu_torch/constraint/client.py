@@ -2,6 +2,8 @@
 # Edits: no static-analysis pass at template admission (the analyzer is
 # not part of this package) and no external-data plane
 # (set_external_data raises, _prefetch_external_for is a no-op).
+# Edit: review_host's docstring: the port's webhook answers a failed fused
+# batch with the fail policy, so review_host is an oracle, not a rung.
 """The constraint-framework Client: engine-agnostic policy orchestration.
 
 Equivalent of vendor/.../frameworks/constraint/pkg/client/client.go:70-838.
@@ -489,14 +491,10 @@ class Client:
         so there is nothing to prefetch."""
 
     def review_host(self, obj: Any, subset=None) -> Responses:
-        """Host-interpreter review: the degraded rung of the admission
-        ladder (docs/robustness.md). Same results as `review` by the
-        driver-parity contract, but pinned to the host so a faulted
-        device path is never re-attempted per request — the micro-batch
-        worker calls this when the fused dispatch fails or the circuit
-        breaker is open. `subset` scopes the evaluation to one
-        partition's constraints (§Fault domains): a sick device
-        degrades only its own constraint subset to the interpreter."""
+        """Host-interpreter review: same results as `review` by the
+        driver-parity contract, but pinned to the host interpreter —
+        the oracle a fused answer is checked against. `subset` scopes
+        the evaluation to some constraints (keys as `constraint_key`)."""
         responses = Responses()
         for name, handler in self.targets.items():
             handled, review = handler.handle_review(obj)

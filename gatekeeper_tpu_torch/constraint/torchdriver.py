@@ -27,7 +27,9 @@ is no cold kernel to serve around. A partition-scoped review
 (`query_many_subset`) is one fused dispatch of a constraint set cut to the
 subset. Reviews encode with the C token flattener (native/flatten.c, built
 with gcc on first use; a failed build raises) unless the caller passes
-encoder="python". Not carried over from TpuDriver (see ROADMAP.md): the static
+encoder="python": the setting for a host with no C compiler, such as a
+serving image without gcc, which then encodes several times slower
+(PERF.md §5). Not carried over from TpuDriver (see ROADMAP.md): the static
 analyzer's routing and feature liveness, fault injection, external data (a
 program reading "extdata:" row features raises NotImplementedError),
 integrity canaries, cost attribution, metrics and the partition plane
@@ -141,7 +143,8 @@ class TorchDriver(RegoDriver):
                 f"TorchDriver: encoder must be 'native' or 'python', got "
                 f"{encoder!r}"
             )
-        # "python" is the caller's explicit request for the Python encoder
+        # "python" is the caller's explicit request for the Python encoder,
+        # for a host that cannot build the C flattener
         self.encoder = encoder
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():

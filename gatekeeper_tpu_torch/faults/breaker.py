@@ -1,8 +1,11 @@
-# Copied from gatekeeper_tpu/faults/breaker.py; no line below differs.
+# Copied from gatekeeper_tpu/faults/breaker.py; only the module docstring
+# differs. Edit: an OPEN breaker's batches get the fail policy envelope
+# (webhook/server.py answers them with EvaluationUnavailable), not the
+# host interpreter, and the doomed attempt no longer adds serial fallbacks.
 """Circuit breaker around the fused device path.
 
 Before this existed, a persistently failing device made EVERY batch pay
-a doomed fused attempt plus N serial fallbacks — the failure tax scaled
+a doomed fused attempt — the failure tax scaled
 with traffic exactly when the system was least healthy. The breaker
 converts that into a state machine with an explicit, observable
 envelope:
@@ -14,8 +17,8 @@ envelope:
 
   * CLOSED: fused dispatches flow; consecutive failures are counted
     (any success resets the count).
-  * OPEN: the fused path is short-circuited — batches go straight to
-    the host-interpreter degraded mode, paying zero doomed device
+  * OPEN: the fused path is short-circuited — batches are answered
+    with the endpoint's fail policy, paying zero doomed device
     attempts. After `recovery_seconds` the breaker half-opens.
   * HALF_OPEN: exactly ONE batch is admitted as a probe; success closes
     the breaker, failure re-opens it (and restarts the recovery clock).
@@ -23,7 +26,7 @@ envelope:
 Every transition gets a Prometheus series (`device_breaker_state`,
 `device_breaker_transitions_total`, `device_breaker_probes_total`) and
 a tracer span, so a dashboard — not a log dive — answers "why is
-admission on the interpreter right now".
+admission failing open right now".
 """
 
 from __future__ import annotations

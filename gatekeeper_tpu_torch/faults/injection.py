@@ -1,17 +1,18 @@
 # Copied from gatekeeper_tpu/faults/injection.py; only these edits differ.
 # Edit: arming from GATEKEEPER_TPU_FAULTS (configure_from_env), the
 # clock-jump skew(), device_point and FaultRegistry.snapshot are left
-# out; points are armed through FAULTS.arm.
+# out; points are armed through FAULTS.arm. The docstring names the
+# port's ladder: a failed fused batch goes to the fail policy verdict.
 """Deterministic fault-injection registry.
 
 The admission plane concentrates all risk in one device dispatch: a
 failure envelope that is only ever exercised in production is not a
 failure envelope, it is a surprise. This registry gives every
 interesting failure surface a NAMED fault point threaded into the
-production code path itself (`fire("driver.device_dispatch")` sits
-inside `TpuDriver._need_pairs`, not in a test double), so the chaos
-suite and `bench_webhook.py --chaos` drive the REAL degradation ladder
-— fused TPU → host oracle → fail-open verdict — end to end.
+production code path itself (`fire("webhook.batch_dispatch")` sits
+inside `MicroBatcher._dispatch`, not in a test double), so tests drive
+the REAL degradation ladder — fused batch → fail-policy verdict — end to
+end.
 
 Semantics (arm / trigger / fire):
   * `arm(point, mode, ...)` registers a fault spec for a point;

@@ -2,17 +2,21 @@
 # Edit: MicroBatcher._driver_route is rewritten: TorchDriver sends every
 # micro-batch to the device ("fused"), the port's RegoDriver answers on the
 # interpreter ("interp"); the route rides the dispatch span as driver_route.
-# Edit: planes that are not ported are left out: mutation and the agent
-# plane (ROADMAP A5, A10), fault-domain partitions, cost attribution, the
-# corpus analyzer and integrity sampling (A3c), the framed ingest listener
-# and the deadline scheduler (A3b), the flight recorder and decision log
-# (A10), TLS and cert rotation (A3e). WebhookServer keeps their argument
-# names and raises NotImplementedError when one is given a value other
-# than its default; MicroBatcher takes none of them. The fifo admission
-# queue of the scheduler is inlined (a bounded queue, every pending request
-# cut into the next batch in arrival order), so queue items carry no
-# tenant key and no sched_* series exist; BatchedValidationHandler has no
-# deadline_scope (ingest frames set it). The dispatch-row series
+# Edit: a batch the fused path fails, or one the open breaker turns away,
+# is not answered again on the host interpreter: each of its requests gets
+# EvaluationUnavailable, which the handler answers with the endpoint's
+# fail-open/fail-closed envelope (the reference's failurePolicy). The host
+# rung (_dispatch_host, the webhook.host_review fault point) is gone.
+# Edit: planes that are not ported are left out with their arguments:
+# mutation and the agent plane (ROADMAP A5, A10), fault-domain partitions,
+# cost attribution, the corpus analyzer and integrity sampling (A3c), the
+# framed ingest listener and the deadline scheduler (A3b), the flight
+# recorder and decision log (A10), TLS and cert rotation (A3e). A path
+# other than /v1/admit and /v1/admitlabel is answered 404. The fifo
+# admission queue of the scheduler is inlined (a bounded queue, every
+# pending request cut into the next batch in arrival order), so queue items
+# carry no tenant key and no sched_* series exist; BatchedValidationHandler
+# has no deadline_scope (ingest frames set it). The dispatch-row series
 # (dispatch_rows_*), which count constraint rows per partition, are left
 # out with the partitions.
 # Edit: the deadline clock is time.monotonic(): the port's fault registry
@@ -30,13 +34,13 @@ the whole batch is evaluated in ONE fused device dispatch via
 /v1/admitlabel with AdmissionReview JSON — the in-process stand-in for
 the Go webhook pod.
 
-Failure semantics preserve the reference's fail-open design and make the
-whole degradation ladder explicit: a failed fused batch falls back to
-per-request HOST-interpreter evaluation (never a second doomed device
-attempt), a circuit breaker (`faults.CircuitBreaker`) short-circuits the
-fused path entirely after K consecutive batch failures, and only a
-request whose own host evaluation also fails gets an error response —
-one poisoned request can no longer 500 a whole batch. Overload
+Failure semantics are the reference's failurePolicy: a request the
+fused path did not evaluate gets the endpoint's fail-open/fail-closed
+envelope. A failed fused batch is counted (`batch_failures`,
+`webhook_batch_failures_total`) and answered so, never evaluated again
+elsewhere; a circuit breaker (`faults.CircuitBreaker`) turns batches
+away from the fused path after K consecutive failures, so a failing
+device costs no doomed attempts while it is open. Overload
 protection: the admission queue is bounded (`max_queue`) with load
 shedding, and requests carry their caller deadline so an already-expired
 request is shed before dispatch instead of evaluated and discarded.
@@ -59,7 +63,6 @@ from ..faults import (
     DeadlineExceeded,
     EvaluationTimeout,
     EvaluationUnavailable,
-    FaultError,
     ShedError,
     fire,
 )
@@ -327,29 +330,24 @@ class MicroBatcher:
         ]
         breaker = self.breaker
         if breaker is not None and not breaker.allow():
-            # breaker open: the fused path has been failing — go
-            # straight to the host-interpreter degraded mode, paying
-            # zero doomed device attempts for this batch
+            # breaker open: the fused path has been failing — answer with
+            # the fail policy, paying zero doomed device attempts
             if self.metrics is not None:
                 self.metrics.record(
                     "webhook_degraded_dispatch_total", 1, plane=self.plane
                 )
-            self._dispatch_host(batch, reviews, wall0, t0, route="degraded")
+            self._unavailable(batch, wall0, t0, "circuit breaker open")
             return
         try:
             fire("webhook.batch_dispatch")
             all_responses = self.client.review_many(reviews)
-        except Exception:
-            # fused-path failure: degrade to the host-oracle rung so
-            # one poisoned request (or a device fault) cannot fail the
-            # whole batch — requests still get correct answers and only
-            # their own failure surfaces to them
+        except Exception as e:
             if breaker is not None:
                 breaker.record_failure()
             self.batch_failures += 1
             if self.metrics is not None:
                 self.metrics.record("webhook_batch_failures_total", 1)
-            self._dispatch_host(batch, reviews, wall0, t0, route="fallback")
+            self._unavailable(batch, wall0, t0, f"fused batch failed: {e!r}")
             return
         if breaker is not None:
             breaker.record_success()
@@ -363,33 +361,13 @@ class MicroBatcher:
             resp = responses.by_target.get(self.target)
             fut.set_result(resp.results if resp is not None else [])
 
-    def _dispatch_host(self, batch, reviews, wall0: float, t0: float,
-                       route: str) -> None:
-        """The host-oracle rung of the degradation ladder: per-request
-        INTERPRETER evaluation (`Client.review_host` — never a second
-        device attempt). A request whose own host evaluation fails
-        keeps its error (a poisoned request is still a 500); only when
-        the host plane itself is down does the batch fall to the final
-        rung — the typed EvaluationUnavailable that the handler answers
+    def _unavailable(self, batch, wall0: float, t0: float, why: str) -> None:
+        """Resolve a batch the fused path did not evaluate: every request
+        gets the typed EvaluationUnavailable, which the handler answers
         with the endpoint's fail-open/fail-closed envelope."""
-        try:
-            fire("webhook.host_review")
-        except FaultError as e:
-            for _, fut, _, _, _ in batch:
-                fut.set_exception(EvaluationUnavailable(str(e)))
-            self._record_spans(batch, wall0, t0, route="unavailable")
-            return
-        host = getattr(self.client, "review_host", None)
-        if host is None:
-            host = self.client.review
-        for review, (_, fut, _, _, _) in zip(reviews, batch):
-            try:
-                responses = host(review)
-                resp = responses.by_target.get(self.target)
-                fut.set_result(resp.results if resp is not None else [])
-            except Exception as e:
-                fut.set_exception(e)
-        self._record_spans(batch, wall0, t0, route=route)
+        for _, fut, _, _, _ in batch:
+            fut.set_exception(EvaluationUnavailable(why))
+        self._record_spans(batch, wall0, t0, route="unavailable")
 
     def _record_spans(self, batch, wall0: float, t0: float, route: str) -> None:
         """Stamp this batch's shared timing window into every traced
@@ -477,21 +455,6 @@ class BatchedValidationHandler(ValidationHandler):
             ) from None
 
 
-# WebhookServer arguments of planes the port does not have yet, with the
-# only value each accepts
-_UNPORTED = {
-    "tls": False, "cert_dir": None, "rotator": None,
-    "mutation_system": None, "agent_review": False,
-    "agent_mutation_system": None,
-    "partitions": None, "partition_devices": None, "attributor": None,
-    "replica": None, "corpus": None, "integrity": None,
-    "recorder": None, "decision_log": None,
-    "sched_policy": "fifo", "slo": None,
-    "ingest": False, "ingest_port": 0, "ingest_decode": "zerocopy",
-    "ingest_max_inflight": 256, "ingest_workers": 64,
-}
-
-
 class WebhookServer:
     """Stdlib HTTP server: POST /v1/admit and /v1/admitlabel with
     AdmissionReview JSON bodies, over HTTP/1.1 keep-alive."""
@@ -506,9 +469,6 @@ class WebhookServer:
         exempt_namespaces=None,
         window_ms: float = 2.0,
         metrics=None,
-        tls: bool = False,
-        cert_dir: Optional[str] = None,
-        rotator=None,
         request_timeout: float = DEFAULT_REQUEST_TIMEOUT,
         trace_config=None,
         event_sink=None,
@@ -516,7 +476,6 @@ class WebhookServer:
         log_denies: bool = False,
         logger=None,
         tracer=None,
-        mutation_system=None,
         # overload / degradation envelope: fail_policy is what a
         # shed/expired/unevaluable request gets — "open" (allow; the
         # reference's failurePolicy: Ignore posture) or "closed" (deny
@@ -527,37 +486,12 @@ class WebhookServer:
         # the pod IP surface ("0.0.0.0") or the apiserver and kubelet
         # probes can never connect
         bind_addr: str = "127.0.0.1",
-        agent_review: bool = False,
-        agent_mutation_system=None,
         # graceful drain: seconds stop() holds the listener OPEN after
         # flipping readiness, so a load balancer watching readiness
         # routes away before connections start failing (the
         # preStop-sleep pattern; 0 = flip-and-close immediately)
         drain_grace_s: float = 0.0,
-        partitions: Optional[int] = None,
-        partition_devices: Optional[int] = None,
-        recorder=None,
-        decision_log=None,
-        attributor=None,
-        replica: Optional[str] = None,
-        corpus=None,
-        sched_policy: str = "fifo",
-        slo=None,
-        integrity=None,
-        ingest: bool = False,
-        ingest_port: int = 0,
-        ingest_decode: str = "zerocopy",
-        ingest_max_inflight: int = 256,
-        ingest_workers: int = 64,
     ):
-        given = locals()
-        unported = sorted(k for k, v in _UNPORTED.items() if given[k] != v)
-        if unported:
-            raise NotImplementedError(
-                f"WebhookServer: {', '.join(unported)} belong to planes "
-                "not ported to gatekeeper_tpu_torch (ROADMAP A3b, A3c, "
-                "A3e, A5, A10)"
-            )
         self.client = client  # warmup() runs through it
         self.tracer = tracer
         self.request_timeout = request_timeout
@@ -637,22 +571,16 @@ class WebhookServer:
                     ) or derive_trace_id(request.get("uid"))
                     if self.path == "/v1/admitlabel":
                         resp = outer.label_handler.handle(request)
-                    elif self.path in ("/v1/mutate", "/v1/agent/review"):
-                        # planes not ported (ROADMAP A5, A10): answered
-                        # as the JAX server answers them when disabled
-                        plane = (
-                            "mutation" if self.path == "/v1/mutate"
-                            else "agent review"
-                        )
-                        payload = json.dumps(
-                            {"error": f"{plane} not enabled"}
-                        ).encode()
-                        self.send_response(404)
-                        raise _Handled()
-                    else:
+                    elif self.path == "/v1/admit":
                         resp = outer.handler.handle(
                             request, trace_id=trace_id
                         )
+                    else:
+                        payload = json.dumps(
+                            {"error": f"no endpoint {self.path}"}
+                        ).encode()
+                        self.send_response(404)
+                        raise _Handled()
                     payload = json.dumps(
                         review_envelope(
                             review, request, resp, trace_id=trace_id

@@ -29,7 +29,12 @@ from gatekeeper_tpu_torch.constraint import (
 )
 from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver
 from gatekeeper_tpu_torch.control import Excluder
-from gatekeeper_tpu_torch.faults import CLOSED, FAULTS, OPEN
+from gatekeeper_tpu_torch.faults import (
+    CLOSED,
+    FAULTS,
+    OPEN,
+    EvaluationUnavailable,
+)
 from gatekeeper_tpu_torch.logs import StructuredLogger
 from gatekeeper_tpu_torch.metrics import MetricsRegistry, serve_metrics
 from gatekeeper_tpu_torch.obs import Tracer
@@ -419,10 +424,6 @@ def test_webhook_server_end_to_end(client):
               "metadata": {"name": "evil", "labels": {IGNORE_LABEL: "1"}}}
         out = post(server, "/v1/admitlabel", admission_request(ns, name="evil"))
         assert out["response"]["allowed"] is False
-        # the planes not ported answer as the JAX server does when off
-        with pytest.raises(urllib.error.HTTPError) as err:
-            post(server, "/v1/mutate", reqs[0])
-        assert err.value.code == 404
     finally:
         server.stop()
     # every batch went through the fused route, and the trace says so
@@ -436,8 +437,9 @@ def test_webhook_server_end_to_end(client):
 
 
 def test_batch_failure_falls_back_per_request(client):
-    """A failed fused batch degrades to per-request evaluation; one
-    poisoned request cannot 500 the whole batch (fail-open)."""
+    """A failed fused batch is not evaluated again elsewhere: each of its
+    requests gets EvaluationUnavailable, counted as one batch failure,
+    and no per-request review runs."""
     calls = {"many": 0, "single": 0}
 
     class FaultyClient:
@@ -449,6 +451,8 @@ def test_batch_failure_falls_back_per_request(client):
             calls["single"] += 1
             return client.review(review)
 
+        review_host = review
+
     batcher = MicroBatcher(FaultyClient(), TARGET, window_ms=1.0)
     batcher.start()
     try:
@@ -456,39 +460,53 @@ def test_batch_failure_falls_back_per_request(client):
             batcher.submit(admission_request(pod(f"fb{i}", labels={})))
             for i in range(4)
         ]
-        outs = [f.result(timeout=10) for f in futs]
+        for f in futs:
+            with pytest.raises(EvaluationUnavailable,
+                               match="device fault injected"):
+                f.result(timeout=10)
     finally:
         batcher.stop()
-    assert calls["many"] >= 1 and calls["single"] == 4
-    for results in outs:
-        # the CPU fallback still produced the correct deny results
-        assert any(r.enforcement_action == "deny" for r in results)
+    assert calls["many"] >= 1 and calls["single"] == 0
+    assert batcher.batch_failures == calls["many"]
+    assert batcher.requests_batched == 0
 
 
 def test_fault_point_counts_failures_and_opens_breaker(client):
-    """The webhook.batch_dispatch fault point fails the fused batch: the
-    host rung answers each request, every failure is counted, and after
-    three the breaker opens and batches take the degraded route."""
-    metrics = MetricsRegistry()
-    server = WebhookServer(client, TARGET, window_ms=1.0, metrics=metrics)
-    server.start()
-    FAULTS.arm("webhook.batch_dispatch", "error")
-    try:
-        for i in range(4):
-            out = post(
-                server, "/v1/admit",
-                admission_request(pod(f"f{i}", labels={"app": "x"}), uid=f"f{i}"),
-            )
-            assert out["response"]["allowed"] is False
-            assert "[denied by need-owner]" in out["response"]["status"]["message"]
-    finally:
-        FAULTS.disarm()
-        server.stop()
-    assert server.batcher.batch_failures == 3
-    assert server.batcher.breaker.state == OPEN
-    counters = metrics.snapshot()["counters"]
-    assert counters["webhook_batch_failures_total"] == 3
-    assert counters['webhook_degraded_dispatch_total{plane="validation"}'] == 1
+    """The webhook.batch_dispatch fault point fails the fused batch: each
+    request gets the fail policy envelope, every failure is counted, and
+    after three the breaker opens and turns the next batch away."""
+    for fail_policy, allowed, code in (("open", True, 200),
+                                       ("closed", False, 503)):
+        metrics = MetricsRegistry()
+        server = WebhookServer(client, TARGET, window_ms=1.0,
+                               metrics=metrics, fail_policy=fail_policy)
+        server.start()
+        FAULTS.arm("webhook.batch_dispatch", "error")
+        try:
+            for i in range(4):
+                out = post(server, "/v1/admit", admission_request(
+                    pod(f"f{i}", labels={"app": "x"}), uid=f"f{i}"))
+                resp = out["response"]
+                assert resp["allowed"] is allowed
+                assert resp["status"].get("code", 200) == code
+                assert "admission evaluation unavailable (degraded)" in (
+                    resp["status"]["message"]
+                )
+        finally:
+            FAULTS.disarm()
+            server.stop()
+        assert server.batcher.batch_failures == 3
+        assert server.batcher.batches_dispatched == 0
+        assert server.batcher.breaker.state == OPEN
+        counters = metrics.snapshot()["counters"]
+        assert counters["webhook_batch_failures_total"] == 3
+        assert counters[
+            'webhook_degraded_dispatch_total{plane="validation"}'
+        ] == 1
+        assert counters[
+            "webhook_unavailable_responses_total"
+            f'{{plane="validation",policy="{fail_policy}",reason="degraded"}}'
+        ] == 4
 
 
 def test_batcher_submit_after_stop_dispatches_inline(client):
@@ -601,8 +619,22 @@ UNPORTED = [
 
 @pytest.mark.parametrize("name,value", UNPORTED, ids=[n for n, _ in UNPORTED])
 def test_unported_plane_raises(client, name, value):
-    with pytest.raises(NotImplementedError, match=name):
+    """The planes not ported have no arguments: the server cannot be
+    built with one and then serve without it."""
+    with pytest.raises(TypeError, match=name):
         WebhookServer(client, TARGET, **{name: value})
+
+
+@pytest.mark.parametrize("path", ["/v1/mutate", "/v1/agent/review"])
+def test_unported_endpoint_404(client, path):
+    server = WebhookServer(client, TARGET)
+    server.start()
+    try:
+        with pytest.raises(urllib.error.HTTPError) as err:
+            post(server, path, admission_request(pod()))
+        assert err.value.code == 404
+    finally:
+        server.stop()
 
 
 # -- parity with the JAX package's WebhookServer --------------------------------
