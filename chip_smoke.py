@@ -8,7 +8,8 @@ Phases, one line each on stdout, in this order:
   card     the card's name and power limit (nvidia-smi);
   build    nvcc builds every kernel of the path from csrc/ into
            build/gatekeeper_tpu_torch/ (one nvcc per source, in parallel),
-           then gcc builds the C token flattener (native/flatten.c);
+           then gcc builds the C token flattener (native/flatten.c) and g++
+           the webhook's native HTTP front (native/bridge_frontend.cpp);
   native   the C token flattener against the Python encoder: equal token
            tables and vocab contents and order on 2,000 pods, 2,000
            make_mixed objects and one review batch of 256 against an
@@ -35,6 +36,19 @@ Phases, one line each on stdout, in this order:
            Gatekeeper's service account, /v1/admitlabel requests) from 64
            threads over HTTP get equal response bodies by uid; every batch
            takes the fused route and K1-K4 launch;
+  ingest_parity  the same two clients behind WebhookServer(ingest=True,
+           sched_policy="deadline") with a DecisionLog and an SloEngine:
+           the 512 AdmissionReviews as framed requests with FLAG_DEADLINE
+           budgets over 8 StreamClient connections from 64 threads, plus 16
+           bodies with duplicate keys (the decode fallback). Bodies equal
+           by uid across the two drivers and, on TorchDriver, to the same
+           requests over HTTP and to webhook_parity's fifo verdicts; the
+           zerocopy/fallback/legacy decode counts exact; every batch fused
+           and K1-K4 launch;
+  bridge_parity  a BridgeStack (the C++ front, deadline_ms 10,000) over the
+           TorchDriver parity client takes the 512 requests over HTTP from
+           64 threads: bodies equal to the interpreter's by uid, no
+           fail-open answer, every batch fused, K1-K4 launch;
   full     the north-star deployment (100,000 pods x 500 constraints): one
            audit sweep (4 chunks of 32,768 rows) and 8 admission
            micro-batches of 256 reviews through Client.review_many, with
@@ -53,6 +67,19 @@ Phases, one line each on stdout, in this order:
            batches. No batch may fail or leave the fused route, the breaker
            stays closed, K1-K4 launch, and 64 sampled responses equal the
            interpreter's answer (Client.review_host);
+  ingest   the same client under sched_policy="deadline" with a
+           DecisionLog, an SloEngine and a Tracer: 4,096 framed requests
+           of new pods from 256 callers over 16 connections and 1,024 from
+           16 callers (WebhookServer(ingest=True), 10,000 ms budgets), then
+           4,096 over HTTP from 256 clients through the C++ front at
+           deadline_ms 10,000, and 1,024 from 256 at the front's 2,000 ms
+           default (its fail-open answers counted). Per load the webhook
+           phase's figures plus encode split by encoder, sheds by reason,
+           the scheduler's predicted against measured batch seconds and the
+           SloEngine's autoscaler(). No batch may fail or leave the fused
+           route, no answer at 10,000 ms may fail open, no framed body may
+           take the decode fallback, the breaker stays closed, K1-K4
+           launch, and 64 sampled responses equal Client.review_host;
   audit_churn  the audit controller at full width across cluster churn:
            the full phase's client, its last 20 constraints swapped for join
            constraints; sweep 1 takes a full table upload, then 1,000 pods
@@ -211,6 +238,9 @@ PATH_KERNELS = {
     "full_output": ("match_matrix", "slab_gather", "egroup", "full_totals"),
     "webhook_parity": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "webhook": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "ingest_parity": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "bridge_parity": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "ingest": ("match_matrix", "slab_gather", "egroup", "need_tail"),
 }
 
 # A two-array join in the shape of gatekeeper-library's
@@ -754,18 +784,22 @@ HEAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
 def _window_head():
     """Open a profiler window with throwaway launches: torch.profiler on
     the H100 drops the first kernel records of a window (up to about ten
-    seen), and these absorb the loss. Their time is left out of every
-    sum (HEAD_KERNEL)."""
+    seen, and 34 in some windows after a long unprofiled phase), and these
+    absorb the loss. Their time is left out of every sum (HEAD_KERNEL)."""
     import torch
 
-    for _ in range(32):
+    for _ in range(256):
         torch.cuda._sleep(100)
     torch.cuda.synchronize()
 
 
 def _kernel_name(evt) -> str:
-    parts = (evt.key or "").split("<")[0].split("(")[0].split()
-    return parts[-1] if parts else ""
+    """The kernel's bare name: no return type, namespace, template or
+    parameter list ("at::cuda::(anonymous namespace)::spin_kernel(long)"
+    gives "spin_kernel")."""
+    key = (evt.key or "").replace("(anonymous namespace)", "")
+    parts = key.split("<")[0].split("(")[0].split()
+    return parts[-1].split("::")[-1] if parts else ""
 
 
 def _device_ms(fn, kernels=None, reps: int = 10) -> float:
@@ -832,9 +866,13 @@ def phase_build():
             f.write(f"== {name}.cu\n{log}\n")
     t1 = time.perf_counter()
     native.load_flatten_native()  # gcc: the C token flattener
+    t2 = time.perf_counter()
+    native.build_frontend()  # g++: the webhook's native HTTP front
     print(json.dumps({"phase": "build", "seconds": dt,
                       "built": sorted(logs),
-                      "native_seconds": time.perf_counter() - t1}), flush=True)
+                      "native_seconds": t2 - t1,
+                      "frontend_seconds": time.perf_counter() - t2}),
+          flush=True)
 
 
 def phase_parity(device: str, n_pods: int = 1000, n_constraints: int = 50,
@@ -2147,8 +2185,9 @@ def phase_webhook_parity(port, ref, drv, n: int = 512, threads: int = 64):
     TorchDriver, one over the interpreter driver, with a dryrun and a
     warn constraint added to both: n AdmissionReviews from `threads`
     threads over HTTP must get equal response bodies by uid, and every
-    batch of both must take the fused (`batched`) route. -> the kernel
-    launches of the TorchDriver server's run."""
+    batch of both must take the fused (`batched`) route. -> (the kernel
+    launches of the TorchDriver server's run, its response fields by
+    uid)."""
     from gatekeeper_tpu_torch.control import Excluder
     from gatekeeper_tpu_torch.kernels import ops
     from gatekeeper_tpu_torch.metrics import MetricsRegistry
@@ -2215,7 +2254,7 @@ def phase_webhook_parity(port, ref, drv, n: int = 512, threads: int = 64):
            for name, o in out.items()},
         "seconds": time.perf_counter() - t0,
     }), flush=True)
-    return launches["torch"]
+    return launches["torch"], got
 
 
 def webhook_posts(seed: int, n: int):
@@ -2320,6 +2359,485 @@ def phase_webhook(client, drv, loads=((4096, 256), (1024, 16)),
         "sample_checked": min(len(sample), n_sample),
         "sample_seconds": time.perf_counter() - t1,
         "breaker": server.batcher.breaker.state,
+        "seconds": time.perf_counter() - t0,
+    }), flush=True)
+    return launches
+
+
+def _socket_path(name: str) -> str:
+    """A Unix socket path for the native front's backend, under the build
+    directory (inside the checkout); relative to the working directory
+    when the absolute path would pass the 108-byte sun_path limit."""
+    from gatekeeper_tpu_torch.native import NATIVE_DIR
+
+    NATIVE_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(NATIVE_DIR / f"{name}-{os.getpid()}.sock")
+    return path if len(path) < 100 else os.path.relpath(path)
+
+
+def _drive_framed(port: int, frames, callers: int, conns: int,
+                  timeout: float = 300.0):
+    """Send each (plane, body, budget_ms) of `frames` from `callers`
+    threads over `conns` StreamClient connections (caller k uses
+    connection k % conns), all started together.
+    -> (response bodies in order, latency seconds in order, wall seconds)."""
+    import threading
+
+    from gatekeeper_tpu_torch.ingest import StreamClient
+
+    clients = [StreamClient("127.0.0.1", port) for _ in range(conns)]
+    bodies = [None] * len(frames)
+    lat = [0.0] * len(frames)
+    errors = []
+    start = threading.Barrier(callers + 1)
+
+    def worker(k):
+        c = clients[k % conns]
+        try:
+            start.wait()
+            for i in range(k, len(frames), callers):
+                plane, body, budget_ms = frames[i]
+                t = time.perf_counter()
+                status, data = c.request(body, plane, budget_ms=budget_ms,
+                                         timeout=timeout)
+                lat[i] = time.perf_counter() - t
+                if status != 200:
+                    raise AssertionError(
+                        f"frame status {status} for request {i}: "
+                        f"{data[:300]!r}")
+                bodies[i] = json.loads(data)
+        except Exception as e:  # reported below, after every thread ends
+            errors.append(e)
+
+    workers = [threading.Thread(target=worker, args=(k,), daemon=True)
+               for k in range(callers)]
+    try:
+        for w in workers:
+            w.start()
+        start.wait()
+        t0 = time.perf_counter()
+        for w in workers:
+            w.join(timeout)
+        wall = time.perf_counter() - t0
+    finally:
+        for c in clients:
+            c.close()
+    if any(w.is_alive() for w in workers):
+        raise AssertionError(f"framed load: a caller outlived {timeout} s")
+    if errors:
+        raise AssertionError(
+            f"framed load: {len(errors)} caller errors, first: {errors[0]!r}")
+    return bodies, lat, wall
+
+
+def _dup_key_posts(n: int):
+    """n AdmissionReviews whose request repeats its uid key: the zero-copy
+    scanner declines duplicate keys, so each takes the decode fallback."""
+    posts = []
+    for j in range(n):
+        uid = f"dup-{j}"
+        body = _envelope(admission_request(
+            make_pod(3_000_000 + j, name=uid), uid))
+        key = json.dumps(uid).encode()
+        body = body.replace(b'"uid": ' + key,
+                            b'"uid": ' + key + b', "uid": ' + key, 1)
+        posts.append(("/v1/admit", body))
+    return posts
+
+
+def _framed(posts, budgets):
+    from gatekeeper_tpu_torch.ingest import PLANE_LABEL, PLANE_VALIDATE
+
+    planes = {"/v1/admit": PLANE_VALIDATE, "/v1/admitlabel": PLANE_LABEL}
+    return [(planes[path], body, budget)
+            for (path, body), budget in zip(posts, budgets)]
+
+
+def _shed_uids(bodies):
+    """uids answered with the fail-policy envelope of a request the
+    admission scheduler shed (the reasons of policy.SHED_REASONS)."""
+    from gatekeeper_tpu_torch.webhook.policy import SHED_REASONS
+
+    heads = tuple(f"admission evaluation unavailable ({r})"
+                  for r in SHED_REASONS)
+    return {b["response"]["uid"] for b in bodies
+            if ((b["response"].get("status") or {}).get("message")
+                or "").startswith(heads)}
+
+
+def _fail_open(body) -> bool:
+    """The native front's own answer: its backend missed --deadline-ms."""
+    return any("failing open" in w
+               for w in body["response"].get("warnings") or ())
+
+
+def phase_ingest_parity(port, ref, drv, fifo_fields, n: int = 512,
+                        conns: int = 8, callers: int = 64):
+    """The parity clients behind WebhookServer(ingest=True,
+    sched_policy="deadline") with a DecisionLog and an SloEngine, one over
+    TorchDriver, one over the interpreter driver: webhook_parity's 512
+    AdmissionReviews as framed requests with FLAG_DEADLINE budgets over
+    `conns` StreamClient connections from `callers` threads, plus 16 bodies
+    with duplicate keys (the decode fallback). Bodies must be equal by uid
+    across the two drivers, and on TorchDriver equal to the same requests
+    over HTTP to the same server and, field by field, to webhook_parity's
+    fifo run; every TorchDriver batch takes the fused route and K1-K4
+    launch. A request the scheduler sheds (its estimate of the card's
+    load is the SloEngine's, which may call the plane overloaded) is
+    answered with the fail-policy envelope: such uids, as many as the
+    batcher counted shed, are left out of the comparisons and reported.
+    -> (the framed run's kernel launches, the interpreter's bodies by
+    uid)."""
+    from gatekeeper_tpu_torch.control import Excluder
+    from gatekeeper_tpu_torch.kernels import ops
+    from gatekeeper_tpu_torch.metrics import MetricsRegistry
+    from gatekeeper_tpu_torch.obs import DecisionLog, SloEngine, Tracer
+    from gatekeeper_tpu_torch.webhook import WebhookServer
+
+    t0 = time.perf_counter()
+    posts = _parity_posts(n, excluded="ns7") + _dup_key_posts(16)
+    requests = [json.loads(b)["request"] for _, b in posts]
+    # budgets of 10-17 s, so EDF reorders; none is near a miss
+    frames = _framed(posts, [10_000 + 1000 * (j % 8)
+                             for j in range(len(posts))])
+    n_label = sum(p == "/v1/admitlabel" for p, _ in posts)
+    out, launches, by_uid, shed = {}, {}, {}, set()
+    for name, client in (("torch", port), ("interp", ref)):
+        excluder = Excluder()
+        excluder.add([{"processes": ["webhook"], "excludedNamespaces": ["ns7"]}])
+        metrics = MetricsRegistry()
+        slo = SloEngine(metrics=metrics)
+        server = WebhookServer(
+            client, TARGET, window_ms=2.0, metrics=metrics, excluder=excluder,
+            exempt_namespaces=["kube-system"], tracer=Tracer(),
+            ingest=True, sched_policy="deadline", slo=slo,
+            decision_log=DecisionLog(metrics=metrics, slo=slo),
+        )
+        server.start()
+        try:
+            ops.reset_launches()
+            bodies, lat, wall = _drive_framed(server.ingest.port, frames,
+                                              callers, conns)
+            launches[name] = dict(ops.LAUNCHES)
+            decode = server.ingest.stats()["decode"]
+            http_bodies = None
+            if name == "torch":
+                http_bodies, _, _ = _drive_http(server.port, posts, callers)
+        finally:
+            server.stop()
+        _check_served(f"ingest_parity ({name})", server, metrics, client,
+                      requests)
+        want_decode = {"zerocopy": len(posts) - n_label - 16,
+                       "fallback": 16, "legacy": n_label}
+        if {k: decode[k] for k in want_decode} != want_decode:
+            raise AssertionError(
+                f"ingest_parity ({name}): decode routes {decode}, "
+                f"want {want_decode}")
+        by_uid[name] = {b["response"]["uid"]: b for b in bodies}
+        shed_here = _shed_uids(bodies)
+        n_shed = len(shed_here)
+        if http_bodies is not None:
+            http_shed = _shed_uids(http_bodies)
+            n_shed += len(http_shed)
+            shed_here |= http_shed
+            kept = {b["response"]["uid"]: b for b in http_bodies
+                    if b["response"]["uid"] not in shed_here}
+            if kept != {u: b for u, b in by_uid[name].items()
+                        if u not in shed_here}:
+                raise AssertionError(
+                    "ingest_parity: framed and HTTP bodies differ")
+        if n_shed != server.batcher.shed_count:
+            raise AssertionError(
+                f"ingest_parity ({name}): {n_shed} shed answers, the "
+                f"batcher shed {server.batcher.shed_count}")
+        shed |= shed_here
+        snap = server.sched_snapshot()["validation"]
+        out[name] = {
+            "shed": n_shed,
+            "batches": server.batcher.batches_dispatched,
+            "requests_batched": server.batcher.requests_batched,
+            "driver_route": server.batcher._driver_route(),
+            "wall_s": wall, "p50_s": _quantile(lat, 0.5),
+            "p99_s": _quantile(lat, 0.99), "decode": decode,
+            "sched": {k: snap[k] for k in ("policy", "cuts", "admitted",
+                                           "sheds", "cost_per_row_s")},
+            "autoscaler": slo.autoscaler(),
+        }
+    if out["torch"]["driver_route"] != "fused":
+        raise AssertionError("ingest_parity: TorchDriver batches not fused")
+    if len(by_uid["torch"]) != len(posts):
+        raise AssertionError("ingest_parity: responses missing")
+    got, want = ({u: b for u, b in by_uid[k].items() if u not in shed}
+                 for k in ("torch", "interp"))
+    if got != want:
+        bad = sorted(u for u in want if got.get(u) != want[u])[:5]
+        raise AssertionError(f"ingest_parity: bodies differ for {bad}")
+    fifo = {u: _response_fields(b) for u, b in got.items() if u in fifo_fields}
+    if fifo != {u: f for u, f in fifo_fields.items() if u not in shed}:
+        raise AssertionError(
+            "ingest_parity: deadline-policy verdicts differ from the fifo run")
+    if drv.device.type == "cuda":
+        missing = [k for k in PATH_KERNELS["ingest_parity"]
+                   if launches["torch"][k] <= 0]
+        if missing:
+            raise AssertionError(
+                f"ingest_parity: kernels never launched: {missing}")
+    print(json.dumps({
+        "phase": "ingest_parity", "requests": len(posts), "callers": callers,
+        "connections": conns, "launches": launches["torch"], **out,
+        "seconds": time.perf_counter() - t0,
+    }), flush=True)
+    return launches["torch"], by_uid["interp"]
+
+
+def phase_bridge_parity(port, drv, interp_bodies, n: int = 512,
+                        threads: int = 64):
+    """A BridgeStack over the TorchDriver parity client: webhook_parity's
+    512 AdmissionReviews over HTTP to the C++ front (deadline_ms 10,000)
+    from `threads` threads. Bodies must equal the interpreter's by uid
+    (the bridge's envelope carries no traceId), no answer may be the
+    front's fail-open, every batch takes the fused route and K1-K4
+    launch. -> the kernel launches of the run."""
+    from gatekeeper_tpu_torch.control import Excluder
+    from gatekeeper_tpu_torch.kernels import ops
+    from gatekeeper_tpu_torch.metrics import MetricsRegistry
+    from gatekeeper_tpu_torch.webhook.bridge import BridgeStack
+
+    t0 = time.perf_counter()
+    posts = _parity_posts(n, excluded="ns7")
+    requests = [json.loads(b)["request"] for _, b in posts]
+    excluder = Excluder()
+    excluder.add([{"processes": ["webhook"], "excludedNamespaces": ["ns7"]}])
+    metrics = MetricsRegistry()
+    stack = BridgeStack(port, TARGET, _socket_path("bridge-parity"),
+                        deadline_ms=10_000, window_ms=2.0, metrics=metrics,
+                        excluder=excluder, exempt_namespaces=["kube-system"])
+    stack.start()
+    try:
+        ops.reset_launches()
+        bodies, lat, wall = _drive_http(stack.port, posts, threads)
+        launches = dict(ops.LAUNCHES)
+    finally:
+        stack.stop()
+    _check_served("bridge_parity", stack, metrics, port, requests)
+    fail_open = sum(_fail_open(b) for b in bodies)
+    if fail_open:
+        raise AssertionError(f"bridge_parity: {fail_open} fail-open answers")
+    got = {b["response"]["uid"]: b for b in bodies}
+    if len(got) != len(posts):
+        raise AssertionError("bridge_parity: responses missing")
+    shed = _shed_uids(interp_bodies.values())  # ingest_parity's, if any
+    got = {u: b for u, b in got.items() if u not in shed}
+    want = {u: {k: v for k, v in b.items() if k != "traceId"}
+            for u, b in interp_bodies.items() if u in got}
+    if got != want:
+        bad = sorted(u for u in want if got.get(u) != want[u])[:5]
+        raise AssertionError(f"bridge_parity: bodies differ for {bad}")
+    if drv.device.type == "cuda":
+        missing = [k for k in PATH_KERNELS["bridge_parity"]
+                   if launches[k] <= 0]
+        if missing:
+            raise AssertionError(
+                f"bridge_parity: kernels never launched: {missing}")
+    print(json.dumps({
+        "phase": "bridge_parity", "requests": len(posts), "threads": threads,
+        "launches": launches, "batches": stack.batcher.batches_dispatched,
+        "requests_batched": stack.batcher.requests_batched,
+        "served_by_backend": stack.backend.requests_served,
+        "wall_s": wall, "p50_s": _quantile(lat, 0.5),
+        "p99_s": _quantile(lat, 0.99), "fail_open": fail_open,
+        "seconds": time.perf_counter() - t0,
+    }), flush=True)
+    return launches
+
+
+def phase_ingest(client, drv, framed=((4096, 256, 16), (1024, 16, 16)),
+                 bridged=((4096, 256, 10_000), (1024, 256, 2_000)),
+                 n_sample: int = 64):
+    """The full phase's client (100,000 pods x 500 constraints) served as
+    in the webhook phase (window_ms=2.0) under sched_policy="deadline",
+    with a DecisionLog, an SloEngine and a Tracer (the decision facts feed
+    the SLO's cost EWMA through the traced requests). Loads: for each
+    (requests, callers, connections) of `framed`, new pods as framed
+    requests with 10,000 ms FLAG_DEADLINE budgets to WebhookServer
+    (ingest=True); then for each (requests, clients, deadline_ms) of
+    `bridged`, new pods over HTTP keep-alive to the C++ front of a
+    BridgeStack with that deadline (the last, at the reference's 2,000 ms
+    default, only counts its fail-open answers). Per load: request
+    p50/p99/max, requests per second, batches and their mean occupancy,
+    the driver's phase seconds summed over the batches with encode split
+    by encoder (Python for batches holding zero-copy objects, C
+    otherwise), sheds by reason, the scheduler's predicted batch seconds
+    against the measured ones, and SloEngine.autoscaler(). Fails on a
+    failed or off-route batch, a fail-open answer at 10,000 ms, a decode
+    fallback, an open breaker, K1-K4 not launched, or one of n_sample
+    responses that differs from client.review_host. -> the kernel
+    launches of the phase."""
+    from gatekeeper_tpu_torch.flatten.encoder import _carries_preflat
+    from gatekeeper_tpu_torch.kernels import ops
+    from gatekeeper_tpu_torch.metrics import MetricsRegistry
+    from gatekeeper_tpu_torch.obs import DecisionLog, SloEngine, Tracer
+    from gatekeeper_tpu_torch.webhook import WebhookServer
+    from gatekeeper_tpu_torch.webhook.bridge import BridgeStack
+
+    t0 = time.perf_counter()
+    acc = {"phases": {}, "walls": [], "preds": []}
+    review_many = client.review_many
+
+    def measured(reviews, *a, **kw):  # called on one batcher thread at a time
+        t = time.perf_counter()
+        out = review_many(reviews, *a, **kw)
+        acc["walls"].append((len(reviews), time.perf_counter() - t))
+        lazy = any(_carries_preflat(r.admission_request.get(k))
+                   for r in reviews for k in ("object", "oldObject"))
+        route = "python" if lazy else "native"
+        for k, v in drv.stats.get("phase_seconds", {}).items():
+            k = f"encode_{route}" if k == "encode" else k
+            acc["phases"][k] = acc["phases"].get(k, 0.0) + v
+        return out
+
+    def record_cuts(sched):
+        cut = sched.cut
+
+        def recorded(pending, max_batch, now=None):
+            batch, rest = cut(pending, max_batch, now=now)
+            if batch:
+                acc["preds"].append(
+                    (len(batch), sched.last_cut["predicted_seconds"]))
+            return batch, rest
+
+        sched.cut = recorded
+
+    metrics = MetricsRegistry()
+    slo = SloEngine(metrics=metrics)
+    dlog = DecisionLog(metrics=metrics, slo=slo)
+    tracer = Tracer()
+    rows, sample, fallbacks = [], [], 0
+    # n_sample responses, spread over the loads that must all be answered
+    per_load = -(-n_sample // (len(framed) + sum(
+        d >= 10_000 for _, _, d in bridged)))
+    client.review_many = measured
+
+    def run_load(kind, batcher, drive, n, seed, backend=None,
+                 fail_open_ok=False):
+        posts, requests = webhook_posts(100 + seed, n)
+        for k in acc:
+            acc[k] = {} if k == "phases" else []
+        b0, r0, s0 = (batcher.batches_dispatched, batcher.requests_batched,
+                      batcher.shed_count)
+        served0 = backend.requests_served if backend is not None else 0
+        l0 = dict(ops.LAUNCHES)
+        bodies, lat, wall = drive(posts)
+        if backend is not None:
+            # every request the front answered early still reaches the
+            # backend: wait for it, so the counts below are whole
+            t_end = time.perf_counter() + 300
+            while (backend.requests_served - served0 < n
+                   and time.perf_counter() < t_end):
+                time.sleep(0.05)
+        batches = batcher.batches_dispatched - b0
+        served = batcher.requests_batched - r0
+        shed = batcher.shed_count - s0
+        fail_open = sum(_fail_open(b) for b in bodies)
+        if fail_open and not fail_open_ok:
+            raise AssertionError(f"ingest: {fail_open} fail-open answers "
+                                 f"from the front ({kind} load of {n})")
+        if served + shed != n:
+            raise AssertionError(
+                f"ingest: {served} served and {shed} shed of {n} requests")
+        walls = [w for _, w in acc["walls"]]
+        preds = [p for _, p in acc["preds"]]
+        rows.append({
+            "load": kind, "requests": n, "wall_s": wall, "rps": n / wall,
+            "p50_s": _quantile(lat, 0.5), "p99_s": _quantile(lat, 0.99),
+            "max_s": max(lat), "batches": batches,
+            "mean_occupancy": served / batches if batches else 0.0,
+            "shed": shed, "fail_open": fail_open,
+            "phase_seconds": dict(acc["phases"]),
+            "predicted_batch_s": {"sum": sum(preds), "count": len(preds),
+                                  "mean": sum(preds) / max(len(preds), 1)},
+            "measured_batch_s": {"sum": sum(walls), "count": len(walls),
+                                 "mean": sum(walls) / max(len(walls), 1)},
+            "measured_dispatch_s": acc["phases"].get("dispatch", 0.0),
+            "sched": batcher.sched.snapshot()["sheds"],
+            "autoscaler": slo.autoscaler(),
+            "launches": {k: v - l0[k] for k, v in ops.LAUNCHES.items()},
+        })
+        if not fail_open_ok:
+            step = max(1, n // per_load)
+            sample.extend((requests[i], bodies[i])
+                          for i in range(0, n, step)[:per_load])
+        return rows[-1]
+
+    try:
+        ops.reset_launches()
+        server = WebhookServer(
+            client, TARGET, window_ms=2.0, metrics=metrics, tracer=tracer,
+            ingest=True, sched_policy="deadline", slo=slo, decision_log=dlog,
+        )
+        record_cuts(server.batcher.sched)
+        server.start()
+        try:
+            for seed, (n, callers, conns) in enumerate(framed):
+                row = run_load(
+                    "framed", server.batcher,
+                    lambda posts: _drive_framed(
+                        server.ingest.port, _framed(posts, [10_000] * n),
+                        callers, conns),
+                    n, seed)
+                row.update(callers=callers, connections=conns)
+            fallbacks = server.ingest.stats()["decode"]["fallback"]
+            decode = server.ingest.stats()["decode"]
+        finally:
+            server.stop()
+        _check_served("ingest (framed)", server, metrics, client,
+                      [r for r, _ in sample])
+        for seed, (n, threads, deadline_ms) in enumerate(bridged):
+            bmetrics = MetricsRegistry()
+            bridge = BridgeStack(
+                client, TARGET, _socket_path(f"ingest-{seed}"),
+                deadline_ms=deadline_ms, window_ms=2.0, metrics=bmetrics,
+                tracer=tracer, sched_policy="deadline", slo=slo,
+                decision_log=dlog,
+            )
+            record_cuts(bridge.batcher.sched)
+            bridge.start()
+            try:
+                row = run_load(
+                    "bridge", bridge.batcher,
+                    lambda posts: _drive_http(bridge.port, posts, threads),
+                    n, 10 + seed, backend=bridge.backend,
+                    fail_open_ok=deadline_ms < 10_000)
+                row.update(clients=threads, deadline_ms=deadline_ms)
+            finally:
+                bridge.stop()
+            _check_served(f"ingest (bridge, {deadline_ms} ms)", bridge,
+                          bmetrics, client, [r for r, _ in sample])
+        launches = dict(ops.LAUNCHES)
+    finally:
+        del client.review_many
+    if fallbacks:
+        raise AssertionError(f"ingest: {fallbacks} decode fallbacks")
+    if drv.device.type == "cuda":
+        missing = [k for k in PATH_KERNELS["ingest"] if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"ingest: kernels never launched: {missing}")
+    t1 = time.perf_counter()
+    checked = 0
+    for req, body in sample[:n_sample]:
+        fields = _response_fields(body)
+        if fields != _expected_response(client, req):
+            if fields[0] and "evaluation unavailable" in (fields[2] or "") \
+                    and any(r["shed"] for r in rows):
+                continue  # a shed request's fail-policy answer
+            raise AssertionError(
+                f"ingest: response to {req['uid']} differs from review_host")
+        checked += 1
+    print(json.dumps({
+        "phase": "ingest", "loads": rows, "decode": decode,
+        "launches": launches, "sample_checked": checked,
+        "sample_seconds": time.perf_counter() - t1,
+        "decisions": dlog.snapshot(),
         "seconds": time.perf_counter() - t0,
     }), flush=True)
     return launches
@@ -3359,11 +3877,15 @@ def main() -> int:
     port, ref, drv = phase_parity("cuda")
     launches_subset = phase_subset(port, ref, drv)
     phase_audit_parity(port, ref, drv)
-    launches_wh_parity = phase_webhook_parity(port, ref, drv)
+    launches_wh_parity, fifo_fields = phase_webhook_parity(port, ref, drv)
+    launches_ing_parity, interp_bodies = phase_ingest_parity(
+        port, ref, drv, fifo_fields)
+    launches_br_parity = phase_bridge_parity(port, drv, interp_bodies)
     del port, ref, drv
     rec, launches_full, client, drv = phase_full("cuda")
     phase_profile(client, drv)
     launches_webhook = phase_webhook(client, drv)
+    launches_ingest = phase_ingest(client, drv)
     launches_churn = phase_audit_churn(client, drv, rec)
     del client, drv  # the pod-only cluster; the mixed one comes next
     torch.cuda.empty_cache()
@@ -3372,7 +3894,10 @@ def main() -> int:
     launches_out = phase_full_output(client, drv, rec, pairs)
     rows = phase_kernels(
         rec, {"subset": launches_subset, "webhook_parity": launches_wh_parity,
+              "ingest_parity": launches_ing_parity,
+              "bridge_parity": launches_br_parity,
               "full": launches_full, "webhook": launches_webhook,
+              "ingest": launches_ingest,
               "audit_churn": launches_churn,
               "inventory": launches_inv, "full_output": launches_out}
     )

@@ -6,6 +6,9 @@
 # last_build_error are left out (the Python encoder runs only when the
 # caller asks for it: encode_token_table(native=False),
 # TorchDriver(encoder="python")).
+# Edit: build_frontend (the JAX package's gatekeeper_tpu/webhook/bridge.py
+# :32-64) lives here and builds bridge_frontend.cpp the same way, with g++
+# (or $CXX), into the same directory.
 """Native host-side components of the port.
 
 `flatten.c` is the C token flattener: a CPython extension that walks the
@@ -14,6 +17,11 @@ counterpart of the Python `flatten_leaves` + `encode_token_table`. It is
 host code, not a device kernel. It is compiled with gcc (or $CC) on first
 use into a shared object whose name carries a hash of the source, so an
 edited source rebuilds; nothing is built when this module is imported.
+
+`bridge_frontend.cpp` is the native HTTP front of the admission webhook
+(webhook/bridge.py runs it as a child process); `build_frontend` compiles
+it with g++ (or $CXX) into the same directory, under a name that carries
+a hash of the source.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from pathlib import Path
 from ..kernels.build import BUILD_DIR
 
 SOURCE = Path(__file__).resolve().parent / "flatten.c"
+FRONTEND_SOURCE = Path(__file__).resolve().parent / "bridge_frontend.cpp"
 NATIVE_DIR = BUILD_DIR / "native"
 
 _lock = threading.Lock()
@@ -50,37 +59,59 @@ def load_flatten_native():
 def load_or_build(out_dir: Path):
     """Build flatten.c into `out_dir` unless its artifact is there, then
     load it."""
-    out_dir = Path(out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
-    # content-addressed artifact: any source edit rebuilds
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = out_dir / f"_flatten_native_{tag}{suffix}"
+    so = _artifact(out_dir, SOURCE, "_flatten_native", suffix)
     if not so.exists():
         cc = os.environ.get("CC", "gcc")
         include = sysconfig.get_paths()["include"]
-        # unique temp name: concurrent builds (test workers) must not
-        # clobber each other mid-write (os.replace makes the install atomic)
-        tmp = Path(f"{so}.build.{os.getpid()}")
-        cmd = [cc, "-O2", "-shared", "-fPIC", f"-I{include}", str(SOURCE),
-               "-o", str(tmp)]
+        cmd = [cc, "-O2", "-shared", "-fPIC", f"-I{include}", str(SOURCE)]
         if sys.platform == "darwin":
             # clang needs the Python symbols left undefined at link time
             cmd[2:2] = ["-undefined", "dynamic_lookup"]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as e:
-            raise RuntimeError(
-                f"native flattener: cannot run the C compiler {cc!r}: {e}"
-            ) from e
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"native flattener: {' '.join(cmd)} failed (rc "
-                f"{proc.returncode}):\n{proc.stderr}{proc.stdout}"
-            )
-        os.replace(tmp, so)
+        _compile("native flattener", "C", cmd, so)
     spec = importlib.util.spec_from_file_location("_flatten_native", so)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def build_frontend(out_dir: Path = NATIVE_DIR) -> Path:
+    """-> the path of the bridge_frontend executable, building it into
+    `out_dir` first unless its artifact is there. Raises RuntimeError,
+    with the compiler's output, when the build fails."""
+    exe = _artifact(out_dir, FRONTEND_SOURCE, "bridge_frontend", "")
+    if not exe.exists():
+        cxx = os.environ.get("CXX", "g++")
+        cmd = [cxx, "-O2", "-std=c++17", "-pthread", str(FRONTEND_SOURCE)]
+        _compile("bridge frontend", "C++", cmd, exe)
+    return exe
+
+
+def _artifact(out_dir: Path, source: Path, stem: str, suffix: str) -> Path:
+    """Content-addressed artifact path: any source edit rebuilds."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return out_dir / f"{stem}_{tag}{suffix}"
+
+
+def _compile(what: str, lang: str, cmd, out: Path) -> None:
+    """Run `cmd -o <temp>` and install the result at `out`; raise
+    RuntimeError with the compiler's output on failure."""
+    # unique temp name: concurrent builds (test workers) must not clobber
+    # each other mid-write (os.replace makes the install atomic)
+    tmp = Path(f"{out}.build.{os.getpid()}")
+    cmd = [*cmd, "-o", str(tmp)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(
+            f"{what}: cannot run the {lang} compiler {cmd[0]!r}: {e}"
+        ) from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"{what}: {' '.join(cmd)} failed (rc "
+            f"{proc.returncode}):\n{proc.stderr}{proc.stdout}"
+        )
+    os.replace(tmp, out)

@@ -1,7 +1,14 @@
 """Observability: the in-process tracer the audit manager and the webhook
-record their spans into, and the W3C traceparent helpers the webhook
-server reads (a subset of gatekeeper_tpu/obs)."""
+record their spans into, the W3C traceparent helpers the webhook server
+reads, the per-admission decision log and the live SLO engine that feeds
+the admission scheduler (a subset of gatekeeper_tpu/obs)."""
 
+from .decisionlog import (
+    DECISION_SCHEMA_FIELDS,
+    DecisionLog,
+    check_decision_schema,
+)
+from .slo import QuantileSketch, SloEngine, SloTarget, export_slo
 from .tracer import (
     NOOP_SPAN,
     Span,
@@ -14,6 +21,8 @@ from .tracer import (
 )
 
 __all__ = [
-    "NOOP_SPAN", "Span", "SpanContext", "Tracer", "derive_trace_id",
+    "DECISION_SCHEMA_FIELDS", "DecisionLog", "NOOP_SPAN", "QuantileSketch",
+    "SloEngine", "SloTarget", "Span", "SpanContext", "Tracer",
+    "check_decision_schema", "derive_trace_id", "export_slo",
     "format_traceparent", "parse_traceparent", "start_span",
 ]

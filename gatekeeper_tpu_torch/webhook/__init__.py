@@ -4,9 +4,11 @@ Counterpart of pkg/webhook/: the validating handler (policy.py, a copy),
 the namespace-label guard (namespacelabel.py, a copy) and the
 micro-batching bridge that coalesces concurrent AdmissionReviews into one
 fused device dispatch (server.py: `MicroBatcher` -> `Client.review_many`
-on TorchDriver, served over HTTP by `WebhookServer`). Mutation, the agent
-plane, certificates and the ingest front are not ported (ROADMAP A3, A5,
-A10).
+on TorchDriver, served over HTTP by `WebhookServer` and, with
+`ingest=True`, over the framed stream of gatekeeper_tpu_torch/ingest), and
+the native HTTP front's Python back half (bridge.py: `BridgeStack`, the C++
+front of native/bridge_frontend.cpp feeding the same batcher). Mutation,
+the agent plane and certificates are not ported (ROADMAP A3e, A5, A10).
 """
 
 from .policy import AdmissionResponse, TraceConfig, ValidationHandler

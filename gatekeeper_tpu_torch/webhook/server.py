@@ -1,24 +1,22 @@
 # Copied from gatekeeper_tpu/webhook/server.py; only these edits differ.
-# Edit: MicroBatcher._driver_route is rewritten: TorchDriver sends every
-# micro-batch to the device ("fused"), the port's RegoDriver answers on the
-# interpreter ("interp"); the route rides the dispatch span as driver_route.
-# Edit: a batch the fused path fails, or one the open breaker turns away,
-# is not answered again on the host interpreter: each of its requests gets
-# EvaluationUnavailable, which the handler answers with the endpoint's
-# fail-open/fail-closed envelope (the reference's failurePolicy). The host
-# rung (_dispatch_host, the webhook.host_review fault point) is gone.
+# Edit: the driver's phase names are mapped: TorchDriver reports the
+# device dispatch as phase_seconds["dispatch"] and the encode as
+# ["encode"], where the reference reads "device_dispatch" and
+# "flatten_encode" (_PHASES); the decision facts' device_seconds_share, and
+# so the SloEngine's cost EWMA the scheduler predicts with, read the former.
+# MicroBatcher._driver_route is "fused" on TorchDriver (every micro-batch
+# goes to the device) and "interp" on the port's RegoDriver; the route rides
+# the dispatch span as driver_route. A batch the fused path fails, or one
+# the open breaker turns away, is not answered again on the host
+# interpreter: each of its requests gets EvaluationUnavailable, which the
+# handler answers with the endpoint's fail-open/fail-closed envelope (the
+# reference's failurePolicy).
 # Edit: planes that are not ported are left out with their arguments:
-# mutation and the agent plane (ROADMAP A5, A10), fault-domain partitions,
-# cost attribution, the corpus analyzer and integrity sampling (A3c), the
-# framed ingest listener and the deadline scheduler (A3b), the flight
-# recorder and decision log (A10), TLS and cert rotation (A3e). A path
-# other than /v1/admit and /v1/admitlabel is answered 404. The fifo
-# admission queue of the scheduler is inlined (a bounded queue, every
-# pending request cut into the next batch in arrival order), so queue items
-# carry no tenant key and no sched_* series exist; BatchedValidationHandler
-# has no deadline_scope (ingest frames set it). The dispatch-row series
-# (dispatch_rows_*), which count constraint rows per partition, are left
-# out with the partitions.
+# mutation (ROADMAP A5) and the agent plane (A10), fault-domain partitions
+# with their dispatch-row series, cost attribution, the corpus analyzer,
+# integrity sampling and external-data fetch facts (A3c, A3d), the flight
+# recorder (A10), TLS and cert rotation (A3e). A path other than /v1/admit
+# and /v1/admitlabel is answered 404.
 # Edit: the deadline clock is time.monotonic(): the port's fault registry
 # has no clock-jump skew.
 """Micro-batching admission server.
@@ -53,6 +51,7 @@ from __future__ import annotations
 import json
 import threading
 import time
+from contextlib import contextmanager
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as _FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -63,7 +62,6 @@ from ..faults import (
     DeadlineExceeded,
     EvaluationTimeout,
     EvaluationUnavailable,
-    ShedError,
     fire,
 )
 from .namespacelabel import NamespaceLabelHandler
@@ -77,6 +75,9 @@ DEFAULT_REQUEST_TIMEOUT = 10.0
 # is seconds of backlog — anything deeper is already past every caller
 # deadline, so evaluating it would be pure waste (shed instead)
 DEFAULT_MAX_QUEUE = 2048
+
+# the reference's driver phase names -> TorchDriver's phase_seconds keys
+_PHASES = {"flatten_encode": "encode", "device_dispatch": "dispatch"}
 
 
 def review_envelope(
@@ -126,9 +127,24 @@ class MicroBatcher:
         # device circuit breaker: None = construct the default; False =
         # disabled; or pass a faults.CircuitBreaker to share/observe
         breaker=None,
+        # obs.DecisionLog: the batch worker stashes per-request
+        # dispatch facts (route, rows_dispatched/rows_total, cache
+        # counts, device-time share) under each request's trace id;
+        # the handler claims them when it records the decision
+        decisions=None,
+        # admission scheduling: "fifo" is bit-compatible with the
+        # pre-scheduler queue; "deadline" turns on EDF batch formation,
+        # predictive shedding, and per-tenant fair-share quotas. slo
+        # (SloEngine) feeds the overload/saturation loop and the batch
+        # cost EWMA.
+        sched_policy: str = "fifo",
+        slo=None,
     ):
         self.client = client
         self.target = target
+        self.decisions = decisions
+        # (constraint generation, corpus size) cache for rows facts
+        self._rows_cache: Optional[Tuple[Any, int]] = None
         # the target handler owns serving-plane review construction
         # (K8s: AdmissionRequest -> AugmentedReview); clients without a
         # target registry (test fakes) get the default handler
@@ -149,10 +165,24 @@ class MicroBatcher:
                 plane=self.plane, metrics=metrics, tracer=tracer,
             )
         self.breaker: Optional[CircuitBreaker] = breaker or None
+        # the admission scheduler owns enqueue-side admit/shed and the
+        # dispatch-side batch cut; its clock is the batcher's deadline
+        # clock, so enqueue, cut and expiry read one clock
+        from ..sched import AdmissionScheduler
+
+        self.sched = AdmissionScheduler(
+            plane=self.plane,
+            policy=sched_policy,
+            max_queue=max_queue,
+            clock=self._now,
+            slo=slo,
+            metrics=metrics,
+        )
         # (request, future, span ctx | None, (wall, perf) submit stamp,
-        #  monotonic deadline | None)
+        #  monotonic deadline | None, scheduler tenant key | None)
         self._pending: List[
-            Tuple[Dict[str, Any], Future, Any, Tuple, Optional[float]]
+            Tuple[Dict[str, Any], Future, Any, Tuple, Optional[float],
+                  Optional[str]]
         ] = []
         self._lock = threading.Lock()
         self._wake = threading.Event()
@@ -198,6 +228,68 @@ class MicroBatcher:
         drv = getattr(self.client, "_driver", None)
         return "fused" if isinstance(drv, TorchDriver) else "interp"
 
+    # -- decision facts --------------------------------------------------------
+
+    def _corpus_rows(self) -> Optional[int]:
+        """Constraint-corpus size (the rows_total denominator), cached
+        per constraint generation so the hot path pays one generation
+        read per batch, not a key listing."""
+        drv = getattr(self.client, "_driver", None) if self.client else None
+        keys_fn = getattr(drv, "constraint_keys", None)
+        if keys_fn is None:
+            return None
+        gen_fn = getattr(drv, "constraint_generation", None)
+        gen = gen_fn() if gen_fn is not None else None
+        cached = self._rows_cache
+        if cached is None or cached[0] != gen:
+            try:
+                cached = self._rows_cache = (gen, len(keys_fn(self.target)))
+            except Exception:
+                return None
+        return cached[1]
+
+    def _driver_consumption(self) -> Dict[str, Any]:
+        """Per-batch consumption facts from the driver's last dispatch
+        stats: render-cache hits and the batch's device-execute window
+        (apportioned per request by the caller)."""
+        drv = getattr(self.client, "_driver", None) if self.client else None
+        stats = getattr(drv, "stats", None)
+        out: Dict[str, Any] = {}
+        if isinstance(stats, dict):
+            if "render_cache_hits" in stats:
+                out["cache_hits"] = stats["render_cache_hits"]
+            phases = stats.get("phase_seconds") or {}
+            if _PHASES["device_dispatch"] in phases:
+                out["device_seconds"] = phases[_PHASES["device_dispatch"]]
+        return out
+
+    def _note_decisions(
+        self, batch, route: str, rows_dispatched=None, rows_total=None,
+    ) -> None:
+        """Stash dispatch facts for every traced member request: route,
+        rows, cache hits and the batch's device share."""
+        if self.decisions is None:
+            return
+        cons = self._driver_consumption()
+        dev = cons.pop("device_seconds", None)
+        base: Dict[str, Any] = {"route": route, "batch_size": len(batch)}
+        base.update(cons)
+        if rows_total is not None:
+            base["rows_total"] = rows_total
+            base["rows_dispatched"] = (
+                rows_dispatched if rows_dispatched is not None
+                else rows_total
+            )
+        if dev is not None and batch:
+            # the batch's measured device window split evenly across
+            # members — the request-level share of the batch's cost
+            base["device_seconds_share"] = round(dev / len(batch), 9)
+        for _, _, ctx, _, _, _ in batch:
+            tid = getattr(ctx, "trace_id", None)
+            if tid is None:
+                continue
+            self.decisions.note_dispatch(tid, **base)
+
     def _shed(self, fut: Future, exc: Exception, reason: str,
               ctx=None, sub_wall: Optional[float] = None) -> None:
         """Resolve a future without evaluation: counted, traced, and
@@ -217,11 +309,14 @@ class MicroBatcher:
         fut.set_exception(exc)
 
     def submit(self, request: Dict[str, Any], span_ctx=None,
-               deadline: Optional[float] = None) -> Future:
+               deadline: Optional[float] = None, tenant=None) -> Future:
         """Enqueue for the next fused dispatch. `deadline` is a
         monotonic timestamp (the caller's remaining budget): a request
         that is already expired — or expires while queued — is shed
-        with DeadlineExceeded instead of ever reaching a dispatch."""
+        with DeadlineExceeded instead of ever reaching a dispatch.
+        `tenant` is the decision-log tenant identity, extracted BEFORE
+        enqueue so shed verdicts carry it and the scheduler's
+        fair-share quotas account exactly."""
         fut: Future = Future()
         stamp = (time.time(), time.perf_counter())
         if deadline is not None and self._now() >= deadline:
@@ -233,29 +328,42 @@ class MicroBatcher:
                 "deadline", ctx=span_ctx, sub_wall=stamp[0],
             )
             return fut
-        full = False
+        shed_exc = victim_item = victim_exc = None
         with self._lock:
             stopped = self._stop
             if not stopped:
-                full = (
-                    self.max_queue is not None
-                    and len(self._pending) >= self.max_queue
+                key, shed_exc, victim = self.sched.offer(
+                    self._pending, tenant=tenant, deadline=deadline,
+                    now=self._now(),
                 )
-                if not full:
+                if shed_exc is None:
+                    if victim is not None:
+                        # predictive shedding under a full queue: the
+                        # queued request that provably cannot make its
+                        # deadline goes, not the viable newcomer
+                        idx, victim_exc = victim
+                        victim_item = self._pending.pop(idx)
                     self._pending.append(
-                        (request, fut, span_ctx, stamp, deadline)
+                        (request, fut, span_ctx, stamp, deadline, key)
                     )
                     n = len(self._pending)
         if stopped:
             # worker is gone (and stop() may have already drained its
             # leftovers): dispatch inline so the caller never hangs
-            self._dispatch([(request, fut, span_ctx, stamp, deadline)])
+            self._dispatch(
+                [(request, fut, span_ctx, stamp, deadline, None)]
+            )
             return fut
-        if full:
+        if victim_item is not None:
+            _, vfut, vctx, vstamp, _, _ = victim_item
             self._shed(
-                fut,
-                ShedError(f"admission queue full ({self.max_queue} pending)"),
-                "queue_full", ctx=span_ctx, sub_wall=stamp[0],
+                vfut, victim_exc, victim_exc.reason,
+                ctx=vctx, sub_wall=vstamp[0],
+            )
+        if shed_exc is not None:
+            self._shed(
+                fut, shed_exc, getattr(shed_exc, "reason", "queue_full"),
+                ctx=span_ctx, sub_wall=stamp[0],
             )
         else:
             if self.metrics is not None:
@@ -286,11 +394,20 @@ class MicroBatcher:
                 self._wake.wait(remaining)
                 self._wake.clear()
             with self._lock:
-                # everything pending, in arrival order
-                batch, self._pending = self._pending, []
+                # the scheduler cuts the batch: fifo takes everything
+                # in arrival order (the pre-scheduler swap); deadline
+                # policy orders EDF and defers requests that would blow
+                # the earliest member deadline to the next window
+                batch, rest = self.sched.cut(
+                    self._pending, self.max_batch, now=self._now()
+                )
+                self._pending = rest
+            if rest:
+                # deferred work exists: start the next window now
+                self._wake.set()
             if self.metrics is not None:
                 self.metrics.gauge(
-                    "admission_queue_depth", 0, plane=self.plane
+                    "admission_queue_depth", len(rest), plane=self.plane
                 )
             if batch:
                 self._dispatch(batch)
@@ -304,7 +421,7 @@ class MicroBatcher:
         now = self._now()
         live = []
         for item in batch:
-            _, fut, ctx, stamp, deadline = item
+            _, fut, ctx, stamp, deadline = item[:5]
             if deadline is not None and now >= deadline:
                 self._shed(
                     fut,
@@ -326,7 +443,7 @@ class MicroBatcher:
             self.target_handler.augment_request(
                 request, self.namespace_getter
             )
-            for request, _, _, _, _ in batch
+            for request, _, _, _, _, _ in batch
         ]
         breaker = self.breaker
         if breaker is not None and not breaker.allow():
@@ -357,7 +474,12 @@ class MicroBatcher:
             self.metrics.record("webhook_batches_total", 1)
             self.metrics.observe("webhook_batch_size", len(batch))
         self._record_spans(batch, wall0, t0, route="batched")
-        for (_, fut, _, _, _), responses in zip(batch, all_responses):
+        rows = self._corpus_rows()
+        self._note_decisions(
+            batch, self._driver_route(),
+            rows_dispatched=rows, rows_total=rows,
+        )
+        for (_, fut, _, _, _, _), responses in zip(batch, all_responses):
             resp = responses.by_target.get(self.target)
             fut.set_result(resp.results if resp is not None else [])
 
@@ -365,9 +487,10 @@ class MicroBatcher:
         """Resolve a batch the fused path did not evaluate: every request
         gets the typed EvaluationUnavailable, which the handler answers
         with the endpoint's fail-open/fail-closed envelope."""
-        for _, fut, _, _, _ in batch:
+        for _, fut, _, _, _, _ in batch:
             fut.set_exception(EvaluationUnavailable(why))
         self._record_spans(batch, wall0, t0, route="unavailable")
+        self._note_decisions(batch, "unavailable")
 
     def _record_spans(self, batch, wall0: float, t0: float, route: str) -> None:
         """Stamp this batch's shared timing window into every traced
@@ -389,7 +512,7 @@ class MicroBatcher:
                 if k in stats:
                     attrs[k] = stats[k]
         render_s = phases.get("render", 0.0)
-        for _, _, ctx, (sub_wall, _sub_perf), _ in batch:
+        for _, _, ctx, (sub_wall, _sub_perf), _, _ in batch:
             if ctx is None:
                 continue
             self.tracer.record_span(
@@ -401,7 +524,7 @@ class MicroBatcher:
             )
             cursor = wall0
             for phase in ("flatten_encode", "device_dispatch"):
-                dt = phases.get(phase)
+                dt = phases.get(_PHASES[phase])
                 if dt:
                     self.tracer.record_span(
                         phase, cursor, cursor + dt, parent=d_ctx
@@ -431,6 +554,24 @@ class BatchedValidationHandler(ValidationHandler):
         )
         self.batcher = batcher
         self.request_timeout = request_timeout
+        # per-thread deadline override: the framed ingest path stamps
+        # the FRAME HEADER's budget here so the scheduler sees the
+        # caller's real deadline instead of the server-side default
+        self._deadline_local = threading.local()
+
+    @contextmanager
+    def deadline_scope(self, deadline: Optional[float]):
+        """Pin _review calls on THIS thread to an absolute monotonic
+        deadline (ingest frames carry one in the header). None is a
+        no-op scope — the default request_timeout budget applies."""
+        if deadline is None:
+            yield
+            return
+        self._deadline_local.value = deadline
+        try:
+            yield
+        finally:
+            self._deadline_local.value = None
 
     def _review(
         self, request: Dict[str, Any], tracing: bool = False, span=None
@@ -441,17 +582,33 @@ class BatchedValidationHandler(ValidationHandler):
             return super()._review(request, tracing=True, span=span)
         ctx = getattr(span, "context", None)
         # deadline propagation: the request's remaining budget rides to
-        # the batch worker so expiry is checked BEFORE dispatch
-        deadline = self.batcher._now() + self.request_timeout
-        fut = self.batcher.submit(request, span_ctx=ctx, deadline=deadline)
+        # the batch worker so expiry is checked BEFORE dispatch. Tenant
+        # identity is extracted BEFORE enqueue too — shed verdicts must
+        # carry it, and the scheduler's quotas key on it.
+        override = getattr(self._deadline_local, "value", None)
+        if override is not None:
+            deadline = override
+            budget = max(0.0, deadline - self.batcher._now())
+        else:
+            deadline = self.batcher._now() + self.request_timeout
+            budget = self.request_timeout
+        tenant = {
+            "namespace": request.get("namespace", ""),
+            "username": (request.get("userInfo") or {}).get(
+                "username", ""
+            ),
+        }
+        fut = self.batcher.submit(
+            request, span_ctx=ctx, deadline=deadline, tenant=tenant
+        )
         try:
-            return fut.result(timeout=self.request_timeout)
+            return fut.result(timeout=budget)
         except _FutureTimeout:
             # a hung dispatch (device stall): the caller gets the typed
             # unavailability — answered per fail policy — while the
             # worker finishes or dies in the background
             raise EvaluationTimeout(
-                f"admission evaluation exceeded {self.request_timeout:.3f}s"
+                f"admission evaluation exceeded {budget:.3f}s"
             ) from None
 
 
@@ -491,9 +648,28 @@ class WebhookServer:
         # routes away before connections start failing (the
         # preStop-sleep pattern; 0 = flip-and-close immediately)
         drain_grace_s: float = 0.0,
+        # obs.DecisionLog: per-admission "why" records; None = decision
+        # plane off
+        decision_log=None,
+        # admission scheduling: policy for the batcher — "fifo" is the
+        # bit-compatible rollback path, "deadline" enables EDF batch
+        # formation + predictive shedding + fair-share quotas. slo is
+        # the obs.SloEngine feeding the overload/saturation loop.
+        sched_policy: str = "fifo",
+        slo=None,
+        # wire-speed ingest plane: True mounts a framed-stream listener
+        # (ingest.IngestServer) next to the HTTP port — persistent
+        # multiplexed connections, zero-copy AdmissionReview decode,
+        # frame-header deadlines. The HTTP path is untouched either way.
+        ingest: bool = False,
+        ingest_port: int = 0,
+        ingest_decode: str = "zerocopy",
+        ingest_max_inflight: int = 256,
+        ingest_workers: int = 64,
     ):
         self.client = client  # warmup() runs through it
         self.tracer = tracer
+        self.decision_log = decision_log
         self.request_timeout = request_timeout
         self.drain_grace_s = drain_grace_s
         # graceful-drain state: `draining` flips BEFORE the listener
@@ -509,6 +685,9 @@ class WebhookServer:
             namespace_getter=namespace_getter,
             metrics=metrics, tracer=tracer,
             max_queue=max_queue,
+            decisions=decision_log,
+            sched_policy=sched_policy,
+            slo=slo,
         )
         self.handler = BatchedValidationHandler(
             self.batcher, excluder=excluder, metrics=metrics,
@@ -520,8 +699,27 @@ class WebhookServer:
             logger=logger,
             tracer=tracer,
             fail_policy=fail_policy,
+            decision_log=decision_log,
         )
         self.label_handler = NamespaceLabelHandler(exempt_namespaces)
+        self.ingest = None
+        if ingest:
+            # local import: ingest.server imports review_envelope back
+            # from this module
+            from ..ingest.server import IngestServer
+
+            self.ingest = IngestServer(
+                self,
+                host=bind_addr,
+                port=ingest_port,
+                decode=ingest_decode,
+                max_inflight=ingest_max_inflight,
+                workers=ingest_workers,
+                metrics=metrics,
+                tracer=tracer,
+                decision_log=decision_log,
+            )
+            self.ingest_port = self.ingest.port
         outer = self
 
         class _Handled(Exception):
@@ -569,6 +767,18 @@ class WebhookServer:
                     trace_id = parse_traceparent(
                         self.headers.get("traceparent")
                     ) or derive_trace_id(request.get("uid"))
+                    if (
+                        outer.decision_log is not None
+                        and trace_id is not None
+                    ):
+                        # front-door attribution: the decision record
+                        # names which decode route served this admission
+                        # and what it weighed
+                        outer.decision_log.note_dispatch(
+                            trace_id,
+                            decode_route="legacy",
+                            bytes_on_wire=length,
+                        )
                     if self.path == "/v1/admitlabel":
                         resp = outer.label_handler.handle(request)
                     elif self.path == "/v1/admit":
@@ -625,6 +835,8 @@ class WebhookServer:
 
     def start(self) -> None:
         self.batcher.start()
+        if self.ingest is not None:
+            self.ingest.start()
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True
         )
@@ -654,6 +866,11 @@ class WebhookServer:
                 pass  # warmup is best-effort; serving works unwarmed
         self.warm = True
         return time.monotonic() - t0
+
+    def sched_snapshot(self) -> Dict[str, Any]:
+        """Per-plane admission-scheduler state (the reference's
+        `/readyz` `stats.sched` and `/debug/sched` document)."""
+        return {"validation": self.batcher.sched.snapshot()}
 
     # -- graceful drain ------------------------------------------------------
 
@@ -706,9 +923,14 @@ class WebhookServer:
         if grace > 0:
             time.sleep(grace)
         self._httpd.shutdown()
+        if self.ingest is not None:
+            # stop NEW frames; accepted ones are in _inflight below
+            self.ingest.stop_accepting()
         # bounded by the request envelope: no accepted request can
         # legitimately outlive its own timeout + a dispatch window
         self._await_inflight(min(self.request_timeout + 1.0, 15.0))
+        if self.ingest is not None:
+            self.ingest.close()
         self.batcher.stop()
         if self._thread is not None:
             self._thread.join(timeout=5)

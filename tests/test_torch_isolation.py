@@ -147,6 +147,71 @@ def test_admission_plane_imports_with_jax_blocked():
     assert out.stdout.split() == ["False", "1"]
 
 
+SERVING_PLANE = (
+    "gatekeeper_tpu_torch.sched",
+    "gatekeeper_tpu_torch.sched.scheduler",
+    "gatekeeper_tpu_torch.ingest",
+    "gatekeeper_tpu_torch.ingest.transport",
+    "gatekeeper_tpu_torch.ingest.decode",
+    "gatekeeper_tpu_torch.ingest.server",
+    "gatekeeper_tpu_torch.obs.decisionlog",
+    "gatekeeper_tpu_torch.obs.slo",
+    "gatekeeper_tpu_torch.webhook.bridge",
+)
+
+
+def test_serving_planes_run_with_jax_blocked(tmp_path):
+    """The scheduler, the framed ingest plane, the decision log, the SLO
+    engine and the native front import, and a WebhookServer under the
+    deadline policy answers a framed AdmissionReview and a BridgeStack an
+    HTTP one through the C++ front, on the CPU, in an interpreter where
+    importing jax or the JAX package fails."""
+    assert set(SERVING_PLANE) <= set(_modules())
+    code = (
+        "import importlib, json, sys, urllib.request\n"
+        "for m in ('jax', 'jaxlib', 'gatekeeper_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {SERVING_PLANE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver\n"
+        "from gatekeeper_tpu_torch.ingest import PLANE_VALIDATE, StreamClient\n"
+        "from gatekeeper_tpu_torch.obs import DecisionLog, SloEngine\n"
+        "from gatekeeper_tpu_torch.webhook import WebhookServer\n"
+        "from gatekeeper_tpu_torch.webhook.bridge import BridgeStack\n"
+        "c = chip_smoke.build_client(TorchDriver(device='cpu'), 30, 8)\n"
+        "slo = SloEngine()\n"
+        "s = WebhookServer(c, chip_smoke.TARGET, ingest=True, slo=slo,\n"
+        "                  sched_policy='deadline',\n"
+        "                  decision_log=DecisionLog(slo=slo))\n"
+        "s.start()\n"
+        "req = chip_smoke.admission_request(chip_smoke.make_pod(503), 'u')\n"
+        "body = chip_smoke._envelope(req)\n"
+        "with StreamClient('127.0.0.1', s.ingest.port) as sc:\n"
+        "    st, framed = sc.request(body, PLANE_VALIDATE, budget_ms=60000)\n"
+        "s.stop()\n"
+        f"b = BridgeStack(c, chip_smoke.TARGET, {str(tmp_path / 'i.sock')!r},\n"
+        "                deadline_ms=60000)\n"
+        "b.start()\n"
+        "try:\n"
+        "    url = f'http://127.0.0.1:{b.port}/v1/admit'\n"
+        "    bridged = json.loads(urllib.request.urlopen(url, body,\n"
+        "                                                timeout=60).read())\n"
+        "finally:\n"
+        "    b.stop()\n"
+        "print(st, json.loads(framed)['response']['allowed'],\n"
+        "      bridged['response']['allowed'], s.batcher.batches_dispatched,\n"
+        "      b.batcher.batches_dispatched, slo.observed)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["200", "False", "False", "1", "1", "1"]
+
+
 def test_entry_and_inventory_joins_run_with_jax_blocked():
     """The harness step (gatekeeper_tpu_torch.entry) and an audit over the
     uniqueness joins run on the CPU in an interpreter where importing jax

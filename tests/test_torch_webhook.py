@@ -610,10 +610,6 @@ UNPORTED = [
     ("agent_mutation_system", object()), ("partitions", 2),
     ("partition_devices", 2), ("attributor", object()), ("replica", "r0"),
     ("corpus", object()), ("integrity", object()), ("recorder", object()),
-    ("decision_log", object()), ("sched_policy", "deadline"),
-    ("slo", object()), ("ingest", True), ("ingest_port", 9443),
-    ("ingest_decode", "json"), ("ingest_max_inflight", 8),
-    ("ingest_workers", 4),
 ]
 
 
