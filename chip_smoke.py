@@ -56,6 +56,13 @@ Phases, one line each on stdout, in this order:
            render); the launch counter of every kernel of that path (K1-K4)
            must be > 0 over that run, and a sample of its reviews must
            match the interpreter;
+  analysis the static analyzer over the full client's templates (and,
+           after inventory, the mixed client's): verdict counts, fallback
+           codes, analyzer_mismatches == 0, and any template whose route
+           differs from the one the compiler alone gives it;
+  liveness the full phase's 8 review batches of 256 with the IR liveness
+           mask on and off: equal results; the token slots dropped, K2's
+           [N, L, T] and the encode and dispatch seconds of both;
   profile  device-busy against wall seconds (torch.profiler, CUDA
            activity) for a second, warm-corpus audit sweep and one more
            review batch, after the counted run;
@@ -66,7 +73,8 @@ Phases, one line each on stdout, in this order:
            occupancy, and the driver's phase seconds summed over the
            batches. No batch may fail or leave the fused route, the breaker
            stays closed, K1-K4 launch, and 64 sampled responses equal the
-           interpreter's answer (Client.review_host);
+           interpreter's answer (_oracle: a RegoDriver client with the
+           same policy and no synced objects);
   ingest   the same client under sched_policy="deadline" with a
            DecisionLog, an SloEngine and a Tracer: 4,096 framed requests
            of new pods from 256 callers over 16 connections and 1,024 from
@@ -79,7 +87,17 @@ Phases, one line each on stdout, in this order:
            SloEngine's autoscaler(). No batch may fail or leave the fused
            route, no answer at 10,000 ms may fail open, no framed body may
            take the decode fallback, the breaker stays closed, K1-K4
-           launch, and 64 sampled responses equal Client.review_host;
+           launch, and 64 sampled responses equal the interpreter's;
+  partitions  the same client behind WebhookServer(partitions=4,
+           integrity=IntegrityPlane(), attributor=CostAttributor()):
+           4,096 requests from 256 callers, every answer equal to the
+           monolithic dispatch's and 64 to the interpreter's, no canary
+           mismatch, K1-K4 launched by every partition; per partition the
+           launches and the attributed against the measured dispatch
+           seconds; what canaries add to a dispatch; then a one-constraint
+           churn (exactly one program compiles) and the fault point
+           driver.device_dispatch[device=1] (three failed dispatches, the
+           breaker opens, partition 1 re-homes, later answers fused);
   audit_churn  the audit controller at full width across cluster churn:
            the full phase's client, its last 20 constraints swapped for join
            constraints; sweep 1 takes a full table upload, then 1,000 pods
@@ -241,6 +259,8 @@ PATH_KERNELS = {
     "ingest_parity": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "bridge_parity": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "ingest": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "liveness": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "partitions": ("match_matrix", "slab_gather", "egroup", "need_tail"),
 }
 
 # A two-array join in the shape of gatekeeper-library's
@@ -2271,14 +2291,47 @@ def webhook_posts(seed: int, n: int):
     return posts, requests
 
 
-def _expected_response(client, request):
-    """What the webhook must answer for `request`: the deny results of
-    client.review_host (the interpreter), as ValidationHandler renders
+def _expected_response(oracle, request):
+    """What the webhook must answer for `request`: the deny results of the
+    interpreter (`oracle`, from _oracle), as ValidationHandler renders
     them."""
     from gatekeeper_tpu_torch.constraint import K8sValidationTarget
 
     review = K8sValidationTarget().augment_request(request)
-    results = client.review_host(review).by_target[TARGET].results
+    return _response_of(oracle.review_host(review).by_target[TARGET].results)
+
+
+def _oracle(client):
+    """An interpreter client (RegoDriver) with `client`'s templates and
+    constraints and no synced objects. It answers as client.review_host
+    for a policy that reads no inventory, which this one checks (no
+    template's analyzer report has an inventory ref, GK-V006, or a
+    dynamic one, GK-V004), and keeps client.review_host from freezing the
+    serving driver's whole inventory (100,000 pods) in the serving
+    process."""
+    from gatekeeper_tpu_torch.constraint import (
+        Backend,
+        K8sValidationTarget,
+        RegoDriver,
+    )
+
+    oracle = Backend(RegoDriver()).new_client(K8sValidationTarget())
+    with client._lock:
+        templates = [e.template for e in client._templates.values()]
+        constraints = [c for by_name in client._constraints.values()
+                       for c in by_name.values()]
+    for t in templates:
+        if {"GK-V006", "GK-V004"} & set(t.vectorizability.codes):
+            raise AssertionError(
+                f"oracle: template {t.kind} may read the inventory")
+        oracle.add_template(t)
+    for c in constraints:
+        oracle.add_constraint(c)
+    return oracle
+
+
+def _response_of(results):
+    """The webhook's response fields for a result list."""
     msgs = [f"[denied by {r.constraint['metadata']['name']}] {r.msg}"
             for r in results if r.enforcement_action == "deny"]
     if msgs:
@@ -2295,7 +2348,7 @@ def phase_webhook(client, drv, loads=((4096, 256), (1024, 16)),
     and the driver's phase seconds summed over the batches. Every batch
     must take the fused (`batched`) route, K1-K4 must launch, and
     n_sample responses must equal the interpreter's answer
-    (client.review_host). -> the kernel launches of the phase."""
+    (_oracle). -> the kernel launches of the phase."""
     from gatekeeper_tpu_torch.kernels import ops
     from gatekeeper_tpu_torch.metrics import MetricsRegistry
     from gatekeeper_tpu_torch.webhook import WebhookServer
@@ -2350,10 +2403,11 @@ def phase_webhook(client, drv, loads=((4096, 256), (1024, 16)),
         if missing:
             raise AssertionError(f"webhook: kernels never launched: {missing}")
     t1 = time.perf_counter()
+    oracle = _oracle(client)
     for req, body in sample[:n_sample]:
-        if _response_fields(body) != _expected_response(client, req):
+        if _response_fields(body) != _expected_response(oracle, req):
             raise AssertionError(
-                f"webhook: response to {req['uid']} differs from review_host")
+                f"webhook: response to {req['uid']} differs from the interpreter")
     print(json.dumps({
         "phase": "webhook", "loads": rows, "launches": launches,
         "sample_checked": min(len(sample), n_sample),
@@ -2671,7 +2725,7 @@ def phase_ingest(client, drv, framed=((4096, 256, 16), (1024, 16, 16)),
     against the measured ones, and SloEngine.autoscaler(). Fails on a
     failed or off-route batch, a fail-open answer at 10,000 ms, a decode
     fallback, an open breaker, K1-K4 not launched, or one of n_sample
-    responses that differs from client.review_host. -> the kernel
+    responses that differs from the interpreter's (_oracle). -> the kernel
     launches of the phase."""
     from gatekeeper_tpu_torch.flatten.encoder import _carries_preflat
     from gatekeeper_tpu_torch.kernels import ops
@@ -2823,15 +2877,16 @@ def phase_ingest(client, drv, framed=((4096, 256, 16), (1024, 16, 16)),
         if missing:
             raise AssertionError(f"ingest: kernels never launched: {missing}")
     t1 = time.perf_counter()
+    oracle = _oracle(client)
     checked = 0
     for req, body in sample[:n_sample]:
         fields = _response_fields(body)
-        if fields != _expected_response(client, req):
+        if fields != _expected_response(oracle, req):
             if fields[0] and "evaluation unavailable" in (fields[2] or "") \
                     and any(r["shed"] for r in rows):
                 continue  # a shed request's fail-policy answer
             raise AssertionError(
-                f"ingest: response to {req['uid']} differs from review_host")
+                f"ingest: response to {req['uid']} differs from the interpreter")
         checked += 1
     print(json.dumps({
         "phase": "ingest", "loads": rows, "decode": decode,
@@ -2840,6 +2895,444 @@ def phase_ingest(client, drv, framed=((4096, 256, 16), (1024, 16, 16)),
         "decisions": dlog.snapshot(),
         "seconds": time.perf_counter() - t0,
     }), flush=True)
+    return launches
+
+
+# -- driver planes: analysis, liveness, partitions -----------------------------
+
+
+def _pr8_route(drv, kind, constraint):
+    """Whether the symbolic compiler compiles `constraint`'s program when
+    asked without the analyzer's verdict (the route every template took
+    before verdict-first routing): True for compiled, False for the
+    interpreter. Compiles against throwaway registries."""
+    from gatekeeper_tpu_torch.constraint import hooks
+    from gatekeeper_tpu_torch.constraint.torchdriver import _params_key
+    from gatekeeper_tpu_torch.engine.patterns import PatternRegistry
+    from gatekeeper_tpu_torch.engine.programs import compile_program
+    from gatekeeper_tpu_torch.engine.symbolic import (
+        CompilerEnv,
+        CompileUnsupported,
+    )
+    from gatekeeper_tpu_torch.engine.tables import StrTables
+    from gatekeeper_tpu_torch.flatten.vocab import Vocab
+
+    params = hooks.constraint_parameters(constraint)
+    vocab = Vocab()
+    env = CompilerEnv(
+        vocab, PatternRegistry(vocab), StrTables(vocab),
+        oracle_fn=drv._make_oracle(TARGET, kind, params),
+        oracle_ns=f"{kind}|{_params_key(params)}",
+        oracle_ns_shared=f"{TARGET}|{kind}", template_kind=kind,
+    )
+    try:
+        compile_program(env, drv._kind_modules[(TARGET, kind)], params)
+    except CompileUnsupported:
+        return False
+    return True
+
+
+def phase_analysis(corpus: str, client, drv):
+    """The static analyzer over a corpus's templates: the verdict of each
+    (analyze_template on its document, and the driver's own report of the
+    mounted modules, which must agree), the fallback codes of the routed
+    set, analyzer_mismatches == 0, and every template whose route differs
+    from the route the compiler alone gives it (before verdict-first
+    routing, a template went to the interpreter only when its compile
+    raised)."""
+    from gatekeeper_tpu_torch.analysis import analyze_template
+
+    t0 = time.perf_counter()
+    docs = template_docs() + (
+        uniqueness_templates() if corpus == "inventory" else []
+    )
+    verdicts = {}
+    for doc in docs:
+        kind = doc["spec"]["crd"]["spec"]["names"]["kind"]
+        rep = analyze_template(doc)
+        if drv.template_report(TARGET, kind).verdict != rep.verdict:
+            raise AssertionError(
+                f"analysis: {kind}: the driver's verdict differs from "
+                "analyze_template's")
+        verdicts[kind] = rep.verdict
+    cs = drv._constraint_set(TARGET)
+    changed = []
+    seen = set()
+    for c, prog in zip(cs.constraints, cs.programs):
+        key = (c["kind"], json.dumps(c["spec"].get("parameters"),
+                                     sort_keys=True))
+        if key in seen:
+            continue
+        seen.add(key)
+        if prog is None and _pr8_route(drv, c["kind"], c):
+            changed.append(c["kind"])
+    counts = {}
+    for v in verdicts.values():
+        counts[v] = counts.get(v, 0) + 1
+    if drv.analyzer_mismatches:
+        raise AssertionError(
+            f"analysis: {drv.analyzer_mismatches} analyzer mismatches")
+    print(json.dumps({
+        "phase": "analysis", "corpus": corpus, "templates": len(verdicts),
+        "verdict_counts": counts, "verdicts": verdicts,
+        "fallback_codes": cs.fallback_codes,
+        "interpreted_constraints": sum(p is None for p in cs.programs),
+        "analyzer_mismatches": drv.analyzer_mismatches,
+        "route_changed": sorted(set(changed)),
+        "seconds": time.perf_counter() - t0,
+    }), flush=True)
+
+
+def _k2_shapes():
+    """Wrap ops.slab_gather to note the [N, L, T] of every K2 call:
+    -> (shapes list, undo)."""
+    from gatekeeper_tpu_torch.kernels import ops
+
+    shapes = []
+    real = ops.slab_gather
+
+    def noted(tab, ids, *a, **kw):
+        shapes.append((int(ids.shape[0]), int(ids.shape[1]),
+                       int(tab.shape[1])))
+        return real(tab, ids, *a, **kw)
+
+    ops.slab_gather = noted
+
+    def undo():
+        ops.slab_gather = real
+
+    return shapes, undo
+
+
+def phase_liveness(client, drv, rec, n_batches: int = 8, batch: int = 256):
+    """The full phase's 8 pod review batches of 256 x 500 constraints, each
+    with the IR liveness mask on and then off (drv.liveness_enabled): the
+    results must be equal. Per setting, the token slots the mask dropped,
+    the [N, L, T] of K2's calls (the mask narrows the token axis L; T is
+    the policy's slab columns), and the encode and dispatch seconds summed
+    over the batches. -> the kernel launches of the masked runs."""
+    from gatekeeper_tpu_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    out = {}
+    launches = {}
+    rec.install()
+    try:
+        for on in (True, False):
+            drv.liveness_enabled = on
+            shapes, undo = _k2_shapes()
+            l0 = dict(ops.LAUNCHES)
+            enc = disp = 0.0
+            skipped = 0
+            results = []
+            try:
+                for b in range(n_batches):
+                    resps = client.review_many(review_batch(b, batch))
+                    ph = drv.stats["phase_seconds"]
+                    enc += ph["encode"]
+                    disp += ph["dispatch"]
+                    skipped += drv.stats["columns_skipped_static"]
+                    results.append([_keys(r.by_target[TARGET].results)
+                                    for r in resps])
+            finally:
+                undo()
+            delta = {k: v - l0[k] for k, v in ops.LAUNCHES.items()}
+            if on:
+                launches = delta
+            ls = sorted({s[1] for s in shapes})
+            out["on" if on else "off"] = {
+                "columns_skipped_static": skipped,
+                "k2_calls": len(shapes),
+                "k2_L": ls, "k2_T_max": max(s[2] for s in shapes),
+                "k2_N": sorted({s[0] for s in shapes}),
+                "encode_s": enc, "dispatch_s": disp,
+                "results": results,
+            }
+    finally:
+        drv.liveness_enabled = True
+        rec.remove()
+    if out["on"].pop("results") != out["off"].pop("results"):
+        raise AssertionError("liveness: results with the mask differ")
+    if out["on"]["columns_skipped_static"] <= 0:
+        raise AssertionError("liveness: the mask dropped no token slot")
+    if drv.device.type == "cuda":
+        missing = [k for k in PATH_KERNELS["liveness"] if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"liveness: kernels never launched: {missing}")
+    print(json.dumps({
+        "phase": "liveness", "batches": n_batches, "batch": batch,
+        "liveness_stats": drv.liveness_stats(), **out,
+        "launches": launches, "seconds": time.perf_counter() - t0,
+    }), flush=True)
+    return launches
+
+
+def _unavailable(body) -> bool:
+    """The fail-policy envelope (fail open) of a request the fused path
+    did not evaluate."""
+    status = body["response"].get("status") or {}
+    return body["response"]["allowed"] is True and (
+        status.get("message") or ""
+    ).startswith("admission evaluation unavailable")
+
+
+def _canary_cost(client, drv, integ, part, n: int = 100, reps: int = 5):
+    """What canaries add to one partition dispatch: `n` reviews (a
+    128-row bucket, 28 free slots) through review_many_subset, with the
+    integrity plane and without, in turns; medians of the wall and of the
+    `encode`, `dispatch` and `render` phases, and the canary rows."""
+    objs = review_batch(99, n)
+    out = {"with": [], "without": []}
+    rows0 = integ.snapshot()["canary"]["rows"]
+    for _ in range(reps):
+        for label, plane in (("without", None), ("with", integ)):
+            drv.set_integrity(plane)
+            t = time.perf_counter()
+            client.review_many_subset(objs, part.subset, device=part.device,
+                                      partition=part.index)
+            ph = drv.stats["phase_seconds"]
+            out[label].append((time.perf_counter() - t, ph["encode"],
+                               ph["dispatch"], ph["render"]))
+    drv.set_integrity(integ)
+    med = {
+        label: dict(zip(("wall_s", "encode_s", "dispatch_s", "render_s"),
+                        (sorted(col)[len(col) // 2] for col in zip(*runs))))
+        for label, runs in out.items()
+    }
+    med["canary_rows"] = integ.snapshot()["canary"]["rows"] - rows0
+    return med
+
+
+def phase_partitions(client, drv, rec, n: int = 4096, callers: int = 256,
+                     k: int = 4, fault_rounds: int = 6,
+                     fault_batch: int = 64, n_sample: int = 64):
+    """The full phase's client behind WebhookServer(window_ms=2.0,
+    partitions=k, integrity=IntegrityPlane(), attributor=CostAttributor()):
+    n AdmissionReviews of new pods from `callers` threads over HTTP. Every
+    response must equal the monolithic fused answer to the same request
+    (Client.review_many), n_sample of them _expected_response (the
+    interpreter, about 0.4 s a review over 500 constraints), and no canary
+    may mismatch. Printed: K1-K4 launches per partition, requests per
+    second, p50/p99, the attributed against the measured dispatch seconds
+    per partition. Then, on the same server: one partition's constraint
+    churned (new parameters: exactly one program compiles, the other
+    partitions carry their sets forward; the first 512 requests again),
+    and the fault point driver.device_dispatch[device=1] armed for
+    `fault_rounds` rounds of `fault_batch` of the same requests: requests
+    whose partition-1 dispatch failed get
+    the fail-policy envelope, three failures open device 1's breaker,
+    partition 1 re-homes and every later answer is fused and equal to
+    the interpreter's. -> the kernel launches of the main load."""
+    import copy
+
+    from gatekeeper_tpu_torch.faults import FAULTS, OPEN
+    from gatekeeper_tpu_torch.integrity import IntegrityPlane
+    from gatekeeper_tpu_torch.kernels import ops
+    from gatekeeper_tpu_torch.metrics import MetricsRegistry
+    from gatekeeper_tpu_torch.obs import CostAttributor
+    from gatekeeper_tpu_torch.webhook import WebhookServer
+
+    t0 = time.perf_counter()
+    import traceback
+
+    integ, att, metrics = IntegrityPlane(), CostAttributor(), MetricsRegistry()
+    per_part = {}
+    measured = {}
+    errors = []  # the first few exceptions of dispatches and restages
+    real, real_prepare = drv.query_many_subset, drv.prepare_subset
+
+    def noted(fn, *a, **kw):
+        try:
+            return fn(*a, **kw)
+        except Exception:
+            if len(errors) < 4:
+                errors.append(traceback.format_exc(limit=6))
+            raise
+
+    def prepare(path, subset, device=0):
+        return noted(real_prepare, path, subset, device=device)
+
+    def counted(path, inputs, subset, device=0, partition=None):
+        # under the driver's (reentrant) mutex, so the launch counts
+        # between the two reads are this dispatch's alone
+        with drv._mutex:
+            l0 = dict(ops.LAUNCHES)
+            resps = noted(real, path, inputs, subset, device=device,
+                          partition=partition)
+            label = str(partition if partition is not None else device)
+            row = per_part.setdefault(label, {})
+            for name, v in ops.LAUNCHES.items():
+                row[name] = row.get(name, 0) + v - l0[name]
+            measured[label] = (measured.get(label, 0.0)
+                               + drv.stats["phase_seconds"]["dispatch"])
+        return resps
+
+    posts, requests = webhook_posts(7, n)
+    server = WebhookServer(client, TARGET, window_ms=2.0, partitions=k,
+                           integrity=integ, attributor=att, metrics=metrics)
+    drv.query_many_subset = counted
+    drv.prepare_subset = prepare
+    rec.install()
+    server.start()
+    part = server.partitioner
+    fault = churn = None
+    try:
+        ops.reset_launches()
+        bodies, lat, wall = _drive_http(server.port, posts, callers)
+        launches = dict(ops.LAUNCHES)
+        load = {
+            "requests": n, "callers": callers, "wall_s": wall,
+            "rps": n / wall, "p50_s": _quantile(lat, 0.5),
+            "p99_s": _quantile(lat, 0.99), "max_s": max(lat),
+            "batches": server.batcher.batches_dispatched,
+            "served_fused": server.batcher.requests_batched,
+            "denied": sum(not b["response"]["allowed"] for b in bodies),
+            "unavailable_why": sorted({
+                b["response"]["status"]["message"]
+                for b in bodies if _unavailable(b)})[:4],
+        }
+        attributed = {}
+        for row in att.table(None)["rows"]:
+            for p, s in row["partitions"].items():
+                attributed[p] = attributed.get(p, 0.0) + s
+        load_measured = dict(measured)
+        load_per_part = copy.deepcopy(per_part)
+        load_snap = part.snapshot()
+        plan = part.plan()
+        canary = integ.snapshot()["canary"]
+        canary_cost = _canary_cost(client, drv, integ, plan.partitions[0])
+        # -- one partition churned: exactly one new program compiles --------
+        att.reset()  # the replan weighs static costs, as the first plan did
+        victim = next(
+            c for c in drv._constraints(TARGET)
+            if c["kind"] == "K8sRequiredLabels"
+            and f"K8sRequiredLabels/{c['metadata']['name']}"
+            in plan.partitions[2 % k].subset
+        )
+        churned = copy.deepcopy(victim)
+        churned["spec"]["parameters"] = {"labels": [{"key": "smoke-tier"}]}
+        compiles0 = drv.program_compiles
+        carry0, swaps0 = drv.subset_carryforwards, drv.subset_swaps
+        client.add_constraint(churned)
+        c_posts = posts[:512]
+        c_bodies, _, _ = _drive_http(server.port, c_posts, 64)
+        new_plan = part.plan()
+        churn = {
+            "constraint": f"K8sRequiredLabels/{victim['metadata']['name']}",
+            "partition": 2 % k,
+            "program_compiles": drv.program_compiles - compiles0,
+            "subset_carryforwards": drv.subset_carryforwards - carry0,
+            "subset_swaps": drv.subset_swaps - swaps0,
+            "plan_unchanged": [p.keys for p in new_plan.partitions]
+            == [p.keys for p in plan.partitions],
+            "unavailable": sum(_unavailable(b) for b in c_bodies),
+            "unavailable_why": sorted({
+                b["response"]["status"]["message"]
+                for b in c_bodies if _unavailable(b)})[:4],
+        }
+        if churn["program_compiles"] != 1 or churn["unavailable"]:
+            raise AssertionError(f"partitions: churn {churn}")
+        client.add_constraint(victim)  # the corpus as the later phases know it
+        c_bodies2, _, _ = _drive_http(server.port, c_posts, 64)
+        # -- device 1 fails: only its partition's requests fail open --------
+        snap0 = part.snapshot()["dispatches"]
+        FAULTS.arm("driver.device_dispatch[device=1]", "error")
+        f_bodies = []
+        try:
+            for r in range(fault_rounds):
+                lo = (r * fault_batch) % n
+                fb, _, _ = _drive_http(
+                    server.port, posts[lo:lo + fault_batch], fault_batch)
+                f_bodies += [(lo + i, b) for i, b in enumerate(fb)]
+            fired = FAULTS.fired("driver.device_dispatch[device=1]")
+        finally:
+            FAULTS.reset()
+        snap = part.snapshot()
+        f_plan = part.plan()
+        fault = {
+            "rounds": fault_rounds, "requests": len(f_bodies),
+            "fired": fired,
+            "unavailable": sum(_unavailable(b) for _, b in f_bodies),
+            "unavailable_why": sorted({
+                b["response"]["status"]["message"]
+                for _, b in f_bodies if _unavailable(b)})[:4],
+            "breaker_1": part.breaker(1).state,
+            "partition_1_device": f_plan.partitions[1].device,
+            "rehomes": part.rehomes,
+            "dispatches": {key: v - snap0.get(key, 0)
+                           for key, v in snap["dispatches"].items()},
+        }
+        if (fired != 3 or fault["breaker_1"] != OPEN
+                or fault["partition_1_device"] == 1
+                or fault["dispatches"]["unavailable"] != 3):
+            raise AssertionError(f"partitions: device fault {fault}")
+        final_canary = integ.snapshot()["canary"]
+    finally:
+        server.stop()
+        rec.remove()
+        del drv.query_many_subset, drv.prepare_subset
+        drv.set_integrity(None)
+        for e in errors:
+            print(e, file=sys.stderr, flush=True)
+        drv.set_attributor(None)
+    if drv.device.type == "cuda":
+        for label, row in load_per_part.items():
+            missing = [kk for kk in PATH_KERNELS["partitions"] if row[kk] <= 0]
+            if missing:
+                raise AssertionError(
+                    f"partitions: partition {label} never launched {missing}")
+    if load["served_fused"] != n or load_snap["dispatches"]["unavailable"]:
+        raise AssertionError(f"partitions: not every request fused: {load}")
+    if canary["mismatch_batches"] or final_canary["mismatch_batches"]:
+        raise AssertionError(f"partitions: canary mismatches {final_canary}")
+    # every answer against one monolithic fused dispatch per 256 of the
+    # same requests, and a sample against the interpreter
+    from gatekeeper_tpu_torch.constraint import K8sValidationTarget
+
+    t1 = time.perf_counter()
+    handler = K8sValidationTarget()
+    for lo in range(0, n, 256):
+        resps = client.review_many([handler.augment_request(r)
+                                    for r in requests[lo:lo + 256]])
+        for i, resp in enumerate(resps, start=lo):
+            if _response_fields(bodies[i]) != _response_of(
+                    resp.by_target[TARGET].results):
+                raise AssertionError(
+                    f"partitions: {requests[i]['uid']} differs from the "
+                    "monolithic dispatch")
+    mono_s = time.perf_counter() - t1
+    step = max(1, n // n_sample)
+    oracle = _oracle(client)
+    for req, body in list(zip(requests, bodies))[::step][:n_sample]:
+        if _response_fields(body) != _expected_response(oracle, req):
+            raise AssertionError(
+                f"partitions: response to {req['uid']} differs from "
+                "the interpreter")
+    for i, body in enumerate(c_bodies2):
+        if _response_fields(body) != _response_fields(bodies[i]):
+            raise AssertionError(
+                f"partitions: after the churn, {requests[i]['uid']} differs")
+    failed_open = 0
+    for i, body in f_bodies:
+        if _unavailable(body):
+            failed_open += 1
+        elif _response_fields(body) != _response_fields(bodies[i]):
+            raise AssertionError(
+                f"partitions: under the fault, {requests[i]['uid']} differs")
+    print(json.dumps({
+        "phase": "partitions", "k": k, "load": load,
+        "plan": [len(p.keys) for p in plan.partitions],
+        "launches_per_partition": load_per_part,
+        "dispatch_s_measured": load_measured,
+        "dispatch_s_attributed": attributed,
+        "canary": canary, "canary_cost": canary_cost,
+        "dispatches": load_snap["dispatches"],
+        "churn": churn, "fault": fault, "fault_failed_open": failed_open,
+        "checked_against_monolith": n, "monolith_check_s": mono_s,
+        "checked_against_interpreter": min(n, n_sample),
+        "interpreter_check_s": time.perf_counter() - t1 - mono_s,
+        "launches": launches, "seconds": time.perf_counter() - t0,
+    }, default=float), flush=True)
     return launches
 
 
@@ -3883,21 +4376,26 @@ def main() -> int:
     launches_br_parity = phase_bridge_parity(port, drv, interp_bodies)
     del port, ref, drv
     rec, launches_full, client, drv = phase_full("cuda")
+    phase_analysis("full", client, drv)
+    launches_live = phase_liveness(client, drv, rec)
     phase_profile(client, drv)
     launches_webhook = phase_webhook(client, drv)
     launches_ingest = phase_ingest(client, drv)
+    launches_part = phase_partitions(client, drv, rec)
     launches_churn = phase_audit_churn(client, drv, rec)
     del client, drv  # the pod-only cluster; the mixed one comes next
     torch.cuda.empty_cache()
     phase_inventory_parity("cuda")
     client, drv, pairs, launches_inv = phase_inventory("cuda", rec)
+    phase_analysis("inventory", client, drv)
     launches_out = phase_full_output(client, drv, rec, pairs)
     rows = phase_kernels(
         rec, {"subset": launches_subset, "webhook_parity": launches_wh_parity,
               "ingest_parity": launches_ing_parity,
               "bridge_parity": launches_br_parity,
-              "full": launches_full, "webhook": launches_webhook,
-              "ingest": launches_ingest,
+              "full": launches_full, "liveness": launches_live,
+              "webhook": launches_webhook,
+              "ingest": launches_ingest, "partitions": launches_part,
               "audit_churn": launches_churn,
               "inventory": launches_inv, "full_output": launches_out}
     )

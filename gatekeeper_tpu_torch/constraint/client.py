@@ -1,7 +1,6 @@
 # Copied from gatekeeper_tpu/constraint/client.py; only imports and the edits noted in this header differ.
-# Edits: no static-analysis pass at template admission (the analyzer is
-# not part of this package) and no external-data plane
-# (set_external_data raises, _prefetch_external_for is a no-op).
+# Edit: no external-data plane (set_external_data raises,
+# _prefetch_external_for is a no-op).
 # Edit: review_host's docstring: the port's webhook answers a failed fused
 # batch with the fail policy, so review_host is an oracle, not a rung.
 """The constraint-framework Client: engine-agnostic policy orchestration.
@@ -151,6 +150,18 @@ class Client:
     def add_template(self, templ: Union[dict, ConstraintTemplate]) -> Responses:
         resp = Responses()
         ct, crd, target, modules, prefix = self._create_artifacts(templ)
+        # static vectorizability analysis at admission time: INVALID
+        # templates (unsafe vars, broken entrypoints) are rejected HERE
+        # with their diagnostics instead of surfacing as an evaluation
+        # surprise later; every accepted template carries its report
+        from ..analysis import analyze_modules
+
+        report = analyze_modules(ct.kind, modules)
+        if report.verdict == "INVALID":
+            raise InvalidTemplateError(
+                "template failed static analysis:\n" + report.render()
+            )
+        ct.vectorizability = report
         with self._lock:
             cached = self._templates.get(ct.name)
             if cached is not None and _template_equal(cached.template, ct):

@@ -1,6 +1,9 @@
 # Copied from gatekeeper_tpu/constraint/driver.py; only imports and the edits noted in this header differ.
 # Edit: Driver.query_many_subset takes the `partition` keyword that
 # Client.review_many_subset passes (the source's signature lacks it).
+# Edit: RegoDriver._violation takes an `inventory` to evaluate against in
+# place of the frozen one (TorchDriver's golden canaries pass an empty one
+# for a policy that reads no inventory).
 """Evaluation engine drivers.
 
 `Driver` is the engine plugin boundary — the same seven-method surface as
@@ -431,13 +434,15 @@ class RegoDriver(Driver):
         self, target: str, input: Dict[str, Any],
         trace: Optional[List[str]],
         constraints: Optional[List[Dict[str, Any]]] = None,
+        inventory: Any = None,
     ) -> List[Result]:
         review = H.hook_get_default(input, "review", {})
         handler = self._handler(target)
         if constraints is None:
             constraints = self._constraints(target)
         ns_cache = self._ns_cache(target)
-        inventory = self._inventory(target)
+        if inventory is None:
+            inventory = self._inventory(target)
         results: List[Result] = []
         # autoreject factors (match.needs_ns_selector docstring): the
         # constraint half is handler.constraint_needs_context, the

@@ -22,36 +22,57 @@ are computed on the host from inventory value counts and staged as
 interpreter against the derived-key prune index's candidates, not the
 whole inventory (`stats["pruned_renders"]`).
 
+Routing is verdict-first: the static analyzer (analysis/analyzer.py)
+decides per template whether compilation is attempted; INTERPRETER and
+INVALID templates route with their diagnostic code (`stats
+["fallback_codes"]`), and a template the analyzer calls compilable that the
+compiler refuses is a counted consistency failure (`analyzer_mismatches`,
+code GK-V999), not a routing mechanism. A review batch encodes under
+its constraint set's IR feature-liveness mask (analysis/ir.py): token
+columns no compiled program can read are dropped before padding
+(`columns_skipped_static`); the audit corpus encodes keep-all.
+
 Every micro-batch goes to the device: PyTorch compiles nothing, so there
-is no cold kernel to serve around. A partition-scoped review
-(`query_many_subset`) is one fused dispatch of a constraint set cut to the
-subset. Reviews encode with the C token flattener (native/flatten.c, built
-with gcc on first use; a failed build raises) unless the caller passes
-encoder="python": the setting for a host with no C compiler, such as a
-serving image without gcc, which then encodes several times slower
-(PERF.md §5). Not carried over from TpuDriver (see ROADMAP.md): the static
-analyzer's routing and feature liveness, fault injection, external data (a
-program reading "extdata:" row features raises NotImplementedError),
-integrity canaries, cost attribution, metrics and the partition plane
-around the subset dispatch (its fault point, signature carry-forward and
-prepare_subset).
+is no cold kernel to serve around and no small-batch interpreter route. A
+partition-scoped review (`query_many_subset`) is one fused dispatch of a
+constraint set cut to the subset, behind the fault point
+`driver.device_dispatch[device=N]`; its set carries forward across a
+constraint generation whose content signature for the subset is
+unchanged, and `prepare_subset` stages a changed one as a shadow and
+swaps it in. With an integrity plane (`set_integrity`) every fused review
+dispatch packs canary reviews into its padding slots and strips them
+before any result is returned, and a shadow swaps only after replaying
+the golden canaries; with a cost attributor (`set_attributor`) each
+dispatch's measured `phase_seconds["dispatch"]` is apportioned over its
+constraints by static cost. Reviews encode with the C token flattener
+(native/flatten.c, built with gcc on first use; a failed build raises)
+unless the caller passes encoder="python": the setting for a host with no
+C compiler, such as a serving image without gcc, which then encodes
+several times slower (PERF.md §5). Not carried over from TpuDriver (see
+ROADMAP.md): external data (a program reading "extdata:" row features
+raises NotImplementedError), the program store, and the per-query
+pair/render/phase metric series.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import logging
+import os
 import re
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..analysis import CODE_MISMATCH, VectorizabilityReport, analyze_modules
 from ..engine.exprs import EvalCtx
 from ..engine.matchkernel import features_to_np, matchspec_to_np
-from ..engine.patterns import PatternRegistry
+from ..engine.patterns import PatternRegistry, _match
 from ..engine.programs import Program, compile_program
 from ..engine.render import RenderSet
 from ..engine.symbolic import CompilerEnv, CompileUnsupported
@@ -60,8 +81,10 @@ from ..flatten.encoder import (
     _bucket,
     batch_review_features,
     encode_token_table,
+    mask_token_table,
     unesc_seg,
 )
+from ..faults import FaultError, device_point, fire
 from ..flatten.vocab import OverlayVocab, Vocab
 from ..parallel.fused import FusedKernel, decode_need
 from ..rego import ast as A
@@ -119,6 +142,9 @@ class _Corpus:
     ov_member: Optional[np.ndarray] = None  # [B_pad, P] bool
     ov_capture: Optional[np.ndarray] = None  # [B_pad, P] int32
     ov_tabs: Optional[Dict[str, np.ndarray]] = None  # name -> [B_pad]
+    # token slots the IR feature-liveness mask dropped before padding
+    # (analysis/ir.py); 0 when encoded keep-all
+    skipped_static: int = 0
 
 
 @dataclass
@@ -130,13 +156,30 @@ class _ConstraintSet:
     ms: Dict[str, np.ndarray]
     programs: List[Optional[Program]]  # index-aligned; None => interpreter
     policy: Any = None  # parallel.fused.StagedPolicy, staged lazily
+    # kind -> analyzer diagnostic code for interpreter-routed templates
+    # (CODE_MISMATCH when the analyzer predicted compilable but the
+    # compiler disagreed)
+    fallback_codes: Optional[Dict[str, str]] = None
+    # content signature of a subset set's constraints and template IR: a
+    # constraint-generation bump that leaves it unchanged carries the set
+    # (and its staged policy) forward
+    signature: Optional[str] = None
+    # IR feature liveness over the set's programs, computed once: False =
+    # not yet, None = keep-all (some program failed the pad-equivalence
+    # proof), frozenset = live pattern indices
+    live_pids: Any = False
+    # the whole set only: the slab column map its subsets stage through,
+    # computed once when the whole set's own policy is not staged
+    cols: Any = None
 
 
 class TorchDriver(RegoDriver):
     """Fused-path driver on one CUDA device (or, when the caller asks,
     on the CPU through the kernels' plain versions)."""
 
-    def __init__(self, device: Any = None, encoder: str = "native"):
+    def __init__(
+        self, device: Any = None, encoder: str = "native", metrics=None,
+    ):
         super().__init__()
         if encoder not in ("native", "python"):
             raise ValueError(
@@ -187,6 +230,47 @@ class TorchDriver(RegoDriver):
         self._prune_build_s = 0.0  # seconds spent building key indexes
         # last query's pair routing, render split and phase seconds
         self.stats: Dict[str, Any] = {}
+        # optional MetricsRegistry: per-template verdict gauges, fallback
+        # and analyzer-mismatch counters, compile-plane and liveness
+        # counters land here when wired
+        self.metrics = metrics
+        # (target, kind) -> VectorizabilityReport, computed once per
+        # mounted module set (the admission-time analyzer, re-run here so
+        # the driver owns its routing decision even for modules mounted
+        # without going through Client.add_template)
+        self._analysis: Dict[Tuple[str, str], VectorizabilityReport] = {}
+        # analyzer-says-compilable but CompileUnsupported raised
+        self.analyzer_mismatches = 0
+        # (target, kind) -> diagnostic code for interpreter-routed
+        # templates (machine-readable fallback reason)
+        self._fallback_codes: Dict[Tuple[str, str], str] = {}
+        # obs.CostAttributor (set_attributor): every fused dispatch's
+        # measured seconds apportioned per constraint by static cost
+        self.attributor = None
+        # integrity.IntegrityPlane (set_integrity): canary rows in each
+        # dispatch's padding slots and the golden swap gate; None = off
+        self.integrity = None
+        # incremental compile plane: template IR hashes and per-subset
+        # content signatures; churn restages only the subsets whose
+        # signature changed, and staged shadow sets swap in atomically
+        self._ir_hashes: Dict[Tuple[str, str], str] = {}
+        self._sig_cache: Dict[Tuple[str, frozenset], Tuple[int, str]] = {}
+        self._swap_gen = 0
+        self.program_compiles = 0  # compile_program invocations
+        self.subset_swaps = 0  # shadow sets swapped live
+        self.subset_carryforwards = 0  # generation bumps a signature served
+        # IR feature liveness (analysis/ir.py): review batches encode under
+        # their constraint set's mask, dropping token columns no compiled
+        # program reads before padding. The audit corpus always encodes
+        # keep-all (it is cached per data generation, across constraint
+        # churn). The environment switch turns it off for parity audits.
+        self.liveness_enabled = (
+            os.environ.get("GATEKEEPER_TPU_NO_STATIC_LIVENESS", "") == ""
+        )
+        self.columns_skipped_static = 0  # cumulative dead slots dropped
+        self.liveness_batches = 0  # batches encoded under a live mask
+        # target -> (constraint_gen, IrReport), computed lazily
+        self._ir_reports: Dict[str, Tuple[int, Any]] = {}
 
     # -- module/data bookkeeping (cache invalidation) ------------------------
 
@@ -211,6 +295,10 @@ class TorchDriver(RegoDriver):
         for cache in (self._programs, self._prune_oracles, self._prune_indexes):
             for key in [k for k in cache if k[:2] == (target, kind)]:
                 del cache[key]
+        self._analysis.pop((target, kind), None)
+        self._fallback_codes.pop((target, kind), None)
+        self._ir_hashes.pop((target, kind), None)
+        self._ir_reports.pop(target, None)
         self._cset.pop(target, None)
         self._constraint_gen += 1
 
@@ -222,6 +310,21 @@ class TorchDriver(RegoDriver):
         existed = super().delete_data(path)
         self._note_data_change(path)
         return existed
+
+    def _inventory(self, target: str) -> Any:
+        """The frozen inventory, cached per external-data generation. The
+        base driver keys it on its data version, which every write moves,
+        so each constraint change would freeze the whole inventory again
+        on the next interpreter call: seconds at 100,000 objects, spent
+        under the serving mutex by the golden canaries of the restage
+        that follows a churn."""
+        cached = self._frozen_inv.get(target)
+        if cached is not None and cached[0] == self._data_gen:
+            return cached[1]
+        inv = self.storage.get(["external", target], None)
+        frozen = freeze(inv if inv is not None else {})
+        self._frozen_inv[target] = (self._data_gen, frozen)
+        return frozen
 
     def _note_data_change(self, path: str) -> None:
         with self._mutex:
@@ -258,6 +361,185 @@ class TorchDriver(RegoDriver):
 
         return oracle_fn
 
+    # -- planes wired in by the serving process --------------------------------
+
+    def set_attributor(self, attributor) -> None:
+        """Wire an obs.CostAttributor: from here on every fused dispatch's
+        measured `phase_seconds["dispatch"]` is apportioned per
+        constraint."""
+        self.attributor = attributor
+
+    def set_integrity(self, plane) -> None:
+        """Wire an integrity.IntegrityPlane: from here on every fused
+        review dispatch packs canary rows into its padding slots and
+        reports their verdict digests, and prepare_subset gates swaps on
+        a golden-batch replay."""
+        self.integrity = plane
+        if plane is not None:
+            plane.bind_driver(self)
+
+    def _interp_closure(self, target: str, constraints):
+        """Host-interpreter ground truth for the canary golden sets: ONE
+        review against exactly the constraint set the fused dispatch
+        serves. Called under the serving mutex (reentrant) the first time
+        a signature needs its golden set. A set whose templates read no
+        inventory evaluates against an empty one: freezing the synced
+        objects takes seconds per 100,000 under the mutex, and the frozen
+        tree's millions of objects lengthen every later collection."""
+        constraints = list(constraints)
+        inventory = (
+            None if self._reads_inventory(target, constraints)
+            else freeze({})
+        )
+
+        def interp(review):
+            with self._mutex:
+                return RegoDriver._violation(
+                    self, target, {"review": review}, None,
+                    constraints=constraints, inventory=inventory,
+                )
+        return interp
+
+    def _reads_inventory(self, target: str, constraints) -> bool:
+        """Whether a template of `constraints` may read data.inventory:
+        its analyzer report has an inventory ref (GK-V006) or a dynamic
+        ref (GK-V004), or routes it to the interpreter, or is missing."""
+        with self._mutex:
+            for kind in {c.get("kind") for c in constraints}:
+                rep = self.template_report(target, kind)
+                if rep is None or not rep.compilable or {
+                    "GK-V006", "GK-V004"
+                } & set(rep.codes):
+                    return True
+        return False
+
+    def _canary_pack(
+        self, target: str, sigkey: str, constraints, n: int
+    ) -> List[Any]:
+        """Up to K canary reviews for a dispatch of `n` live reviews, as
+        many as the padding slots of its chunk bucket (the _stage_corpus
+        formula), so packing them never grows the staged shape. The
+        caller strips their results before any merge and reports them
+        through _canary_check after releasing the serving mutex."""
+        integ = self.integrity
+        if integ is None:
+            return []
+        chunk = min(N_CHUNK, _bucket(n, lo=64))
+        slots = chunk * -(-n // chunk) - n
+        if slots <= 0:
+            return []
+        try:
+            return list(integ.canaries_for(
+                target, sigkey, constraints,
+                self._interp_closure(target, constraints), slots,
+            ))
+        except Exception:
+            return []  # integrity accounting must never fail a dispatch
+
+    def _canary_check(
+        self, target: str, sigkey: str, device, canary_split, subset=None,
+    ) -> None:
+        """Digest-compare the stripped canary verdicts against the golden
+        set (off the serving mutex: the plane may trip quarantine)."""
+        integ = self.integrity
+        if integ is None or not canary_split:
+            return
+        try:
+            integ.check_canaries(
+                target, sigkey, device, canary_split, subset=subset
+            )
+        except Exception:
+            pass  # integrity accounting must never fail a dispatch
+
+    @staticmethod
+    def _static_cost(program) -> float:
+        """Static cost weight of one constraint: the compiled program's
+        expression rows (its signature length plus its constant payload)
+        times its row-feature width. Interpreter-routed constraints
+        (program None) weigh a flat 1: they cost host time per matching
+        pair, but must still appear in the table."""
+        if program is None:
+            return 1.0
+        rows = max(1, len(program.signature))
+        consts = sum(int(np.size(v)) for v in program.consts.values())
+        width = 1 + len(program.row_features)
+        return float((rows + consts) * width)
+
+    def _attribute_dispatch(self, cs, seconds: float, partition) -> None:
+        """Feed one measured dispatch window to the attributor,
+        apportioned over `cs`'s constraints by static weight. Called
+        under the serving mutex: the attributor does dict math only."""
+        if self.attributor is None or seconds <= 0.0:
+            return
+        try:
+            entries = []
+            for c, prog in zip(cs.constraints, cs.programs):
+                meta = c.get("metadata") or {}
+                entries.append((
+                    str(c.get("kind", "")),
+                    str(meta.get("name", "")),
+                    self._static_cost(prog),
+                ))
+            self.attributor.note_dispatch(
+                entries, seconds, partition=partition
+            )
+        except Exception:
+            pass  # accounting must never fail a dispatch
+
+    # -- verdict-first routing (the static analyzer) ---------------------------
+
+    def attach_report(
+        self, target: str, kind: str, report: VectorizabilityReport
+    ) -> None:
+        """Re-attach the admission-time analyzer report after a module
+        swap: put_modules just dropped this kind's analysis, and
+        Client.add_template hands its report straight back so the
+        verdict and its fallback code survive until the next dispatch."""
+        if report is None:
+            return
+        with self._mutex:
+            self._analysis[(target, kind)] = report
+            if not report.compilable:
+                self._fallback_codes[(target, kind)] = (
+                    report.primary_code() or "GK-V007"
+                )
+        self._export_verdict(kind, report)
+
+    def template_report(
+        self, target: str, kind: str
+    ) -> Optional[VectorizabilityReport]:
+        """The analyzer's verdict for a mounted template (None when the
+        kind has no modules mounted). Computed once per module set."""
+        key = (target, kind)
+        rep = self._analysis.get(key)
+        if rep is None:
+            mods = self._kind_modules.get(key)
+            if mods is None:
+                return None
+            rep = analyze_modules(kind, mods)
+            self._analysis[key] = rep
+            self._export_verdict(kind, rep)
+        return rep
+
+    def _export_verdict(self, kind: str, rep: VectorizabilityReport) -> None:
+        if self.metrics is None:
+            return
+        self.metrics.gauge(
+            "template_vectorization", 1, kind=kind, verdict=rep.verdict
+        )
+        for code in rep.codes:
+            n = sum(1 for d in rep.diagnostics if d.code == code)
+            self.metrics.gauge(
+                "template_analysis_diagnostics", n, kind=kind, code=code
+            )
+
+    def _note_fallback(self, kind: str, code: str) -> None:
+        self._count("template_fallback_total", kind=kind, code=code)
+
+    def _count(self, name: str, value: float = 1, **tags) -> None:
+        if self.metrics is not None:
+            self.metrics.record(name, value, **tags)
+
     def _program_for(
         self, target: str, constraint: Dict[str, Any]
     ) -> Optional[Program]:
@@ -271,6 +553,15 @@ class TorchDriver(RegoDriver):
         key = (target, kind, _params_key(params))
         if key in self._programs:
             return self._programs[key]
+        # verdict-first routing: INTERPRETER/INVALID templates route with
+        # their diagnostic code before any compile
+        report = self.template_report(target, kind)
+        if report is not None and not report.compilable:
+            code = report.primary_code() or "GK-V007"
+            self._fallback_codes[(target, kind)] = code
+            self._note_fallback(kind, code)
+            self._programs[key] = None
+            return None
         env = CompilerEnv(
             self.vocab,
             self.patterns,
@@ -280,10 +571,22 @@ class TorchDriver(RegoDriver):
             oracle_ns_shared=f"{target}|{kind}",
             template_kind=kind,
         )
+        self.program_compiles += 1
+        self._count("program_store_compiles_total", kind=kind)
         try:
             prog = compile_program(env, mods, params)
-        except CompileUnsupported:
-            prog = None  # outside the compilable subset: interpreter
+        except CompileUnsupported as e:
+            # the analyzer promised compilability: a disagreement is a
+            # counted consistency failure, and the template interprets
+            self.analyzer_mismatches += 1
+            self._fallback_codes[(target, kind)] = CODE_MISMATCH
+            self._note_fallback(kind, CODE_MISMATCH)
+            self._count("analyzer_compile_mismatch_total", kind=kind)
+            logging.getLogger("gatekeeper_tpu_torch.analysis").warning(
+                "analyzer/compiler disagreement: %s predicted compilable "
+                "but compilation gave up: %s", kind, e,
+            )
+            prog = None
         feats = prog.row_features if prog is not None else ()
         ext = [f for f in feats if f.startswith("extdata:")]
         if ext:
@@ -316,25 +619,169 @@ class TorchDriver(RegoDriver):
             constraints=constraints,
             ms=matchspec_to_np(ms),
             programs=programs,
+            fallback_codes=self._set_fallback_codes(
+                target, constraints, programs
+            ),
         )
         self._cset[target] = cs
         return cs
 
+    def _set_fallback_codes(self, target, constraints, programs):
+        """kind -> diagnostic code of every interpreter-routed template in
+        a constraint set."""
+        return {
+            c["kind"]: self._fallback_codes.get((target, c["kind"])) or "GK-V007"
+            for c, p in zip(constraints, programs)
+            if p is None and isinstance(c.get("kind"), str)
+        }
+
+    def constraint_generation(self) -> int:
+        """Constraint/template churn only (the base driver's data version
+        moves on every write): the partition plane rebuilds its plan when
+        this moves."""
+        return self._constraint_gen
+
+    def constraint_costs(self, target: str) -> Dict[str, float]:
+        """Static-cost planner weights (see _static_cost) per constraint
+        key, compiling through the shared `_programs` cache."""
+        with self._mutex:
+            return {
+                constraint_key(c): self._static_cost(
+                    self._program_for(target, c)
+                )
+                for c in self._constraints(target)
+            }
+
+    # -- incremental compile plane -------------------------------------------
+
+    def _ir_hash(self, target: str, kind: str) -> str:
+        """Content hash of a template's rewritten IR modules (AST nodes
+        are dataclasses, so repr() is a stable structural rendering);
+        memoized until put/delete_modules drops the kind."""
+        key = (target, kind)
+        h = self._ir_hashes.get(key)
+        if h is None:
+            mods = self._kind_modules.get(key)
+            h = (
+                hashlib.sha256(repr(mods).encode()).hexdigest()[:16]
+                if mods is not None else ""
+            )
+            self._ir_hashes[key] = h
+        return h
+
+    def _subset_signature(self, target: str, subset: frozenset) -> str:
+        """Content signature of one partition's sub-program: per member
+        constraint, (key, template IR hash, constraint payload), plus the
+        program store's machine fingerprint, "" until the port has a
+        store (ROADMAP A6). Two constraint generations with equal
+        signatures stage identical sub-programs, which licenses the
+        carry-forward. Memoized per constraint generation (caller holds
+        the mutex)."""
+        key = (target, subset)
+        hit = self._sig_cache.get(key)
+        if hit is not None and hit[0] == self._constraint_gen:
+            return hit[1]
+        parts = []
+        for c in self._constraints(target):
+            ck = constraint_key(c)
+            if ck not in subset:
+                continue
+            kind = c.get("kind")
+            parts.append((
+                ck,
+                self._ir_hash(target, kind if isinstance(kind, str) else ""),
+                json.dumps(c, sort_keys=True, default=str),
+            ))
+        parts.sort()
+        sig = hashlib.sha256(json.dumps(["", parts]).encode()).hexdigest()[:16]
+        if len(self._sig_cache) >= 4 * self._cset_sub_max:
+            self._sig_cache.pop(next(iter(self._sig_cache)), None)
+        self._sig_cache[key] = (self._constraint_gen, sig)
+        return sig
+
+    def subset_signature(self, target: str, subset) -> str:
+        """Public (dispatcher-facing) form of `_subset_signature`."""
+        with self._mutex:
+            return self._subset_signature(target, frozenset(subset))
+
+    def subset_ready(self, target: str, subset) -> bool:
+        """True when `subset`'s sub-program can serve a fused dispatch
+        without compiling or staging: its set is cached with a staged
+        policy and its content signature matches the current
+        constraints."""
+        with self._mutex:
+            fs = frozenset(subset)
+            cs = self._cset_sub.get((target, fs))
+            if cs is None or cs.policy is None:
+                return False
+            if cs.constraint_gen == self._constraint_gen:
+                return True
+            return (
+                cs.signature is not None
+                and cs.signature == self._subset_signature(target, fs)
+            )
+
+    def swap_generation(self) -> int:
+        """Monotonic count of sub-program swaps (prepare_subset landing a
+        shadow set live)."""
+        return self._swap_gen
+
+    def compile_plane_stats(self) -> Dict[str, Any]:
+        """Compile-plane counters."""
+        with self._mutex:
+            return {
+                "constraint_generation": self._constraint_gen,
+                "swap_generation": self._swap_gen,
+                "program_compiles": self.program_compiles,
+                "subset_swaps": self.subset_swaps,
+                "subset_carryforwards": self.subset_carryforwards,
+                "analyzer_mismatches": self.analyzer_mismatches,
+            }
+
+    def _carry_forward(
+        self, target: str, subset: frozenset, cs: _ConstraintSet
+    ) -> bool:
+        """Serve `subset`'s cached set across a constraint-generation bump
+        when its signature is unchanged (caller holds the mutex)."""
+        sig = self._subset_signature(target, subset)
+        if cs.signature is None or cs.signature != sig:
+            return False
+        cs.constraint_gen = self._constraint_gen
+        self.subset_carryforwards += 1
+        self._count("program_carryforward_total", target=target)
+        return True
+
     def _subset_cset(
         self, target: str, subset: frozenset
     ) -> Optional[_ConstraintSet]:
-        """The constraint set of `subset`'s constraints only, in
-        `_constraints`' order, with its own match specs and (lazily staged)
-        device policy; None when the subset names no constraint. Programs
-        come from the shared `_programs` cache and, unlike
-        `_constraint_set`, none is evicted here: the whole set may still
-        use it. Cached per (target, subset) until the constraints change
-        (tpudriver.py:937-970, without the signature carry-forward)."""
+        """The constraint set of `subset`'s constraints only, with its own
+        match specs and (lazily staged) device policy; None when the
+        subset names no constraint. Cached per (target, subset); a
+        generation bump whose content signature is unchanged carries the
+        cached set forward instead of rebuilding it."""
         key = (target, subset)
         cs = self._cset_sub.get(key)
         if cs is not None and cs.constraint_gen == self._constraint_gen:
             return cs
+        if cs is not None and self._carry_forward(target, subset, cs):
+            return cs
+        cs = self._build_subset_cset(target, subset)
+        if cs is None:
+            self._cset_sub.pop(key, None)
+            return None
         self._cset_sub.pop(key, None)
+        while len(self._cset_sub) >= self._cset_sub_max:
+            self._cset_sub.popitem(last=False)
+        self._cset_sub[key] = cs
+        return cs
+
+    def _build_subset_cset(
+        self, target: str, subset: frozenset
+    ) -> Optional[_ConstraintSet]:
+        """Build (but do not cache) a subset constraint set, in
+        `_constraints`' order. Programs come from the shared `_programs`
+        cache and, unlike `_constraint_set`, none is evicted here: the
+        whole set may still use it."""
         # the whole set first: its column map is the one the subset stages
         # through (_staged_policy), and every pattern its programs register
         # must exist before a review batch takes its overlay snapshot
@@ -346,31 +793,42 @@ class TorchDriver(RegoDriver):
         if not constraints:
             return None
         ms = self._handler(target).compile_match_specs(constraints, self.vocab)
-        cs = _ConstraintSet(
+        programs = [self._program_for(target, c) for c in constraints]
+        return _ConstraintSet(
             constraint_gen=self._constraint_gen,
             constraints=constraints,
             ms=matchspec_to_np(ms),
-            programs=[self._program_for(target, c) for c in constraints],
+            programs=programs,
+            fallback_codes=self._set_fallback_codes(
+                target, constraints, programs
+            ),
+            signature=self._subset_signature(target, subset),
         )
-        while len(self._cset_sub) >= self._cset_sub_max:
-            self._cset_sub.popitem(last=False)
-        self._cset_sub[key] = cs
-        return cs
 
-    def _staged_policy(self, target: str, cs: _ConstraintSet):
-        """`cs`'s device policy, staged once per set. A subset set stages
-        its slab columns through the whole set's column map: the resident
+    def _policy_cols(self, target: str, cs: _ConstraintSet):
+        """The slab column map `cs` stages through: the whole set's, for a
+        subset set (None for the whole set itself). The resident
         `<kind>!T` tables are keyed by their columns
         (FusedKernel._tables_device), so sets with columns of their own,
         used in turn, would upload those tables whole on every switch."""
-        if cs.policy is None:
-            cols = None
-            full = self._constraint_set(target)
-            if full is not None and full is not cs:
-                cols = (
-                    full.policy.cols if full.policy is not None
-                    else self.kernel.policy_columns(full.programs)
-                )
+        full = self._constraint_set(target)
+        if full is None or full is cs:
+            return None
+        if full.policy is not None:
+            return full.policy.cols
+        if full.cols is None:
+            full.cols = self.kernel.policy_columns(full.programs)
+        return full.cols
+
+    def _staged_policy(self, target: str, cs: _ConstraintSet):
+        """`cs`'s device policy, staged once per set, and again when the
+        whole set's column map moved under a subset set carried forward
+        across churn."""
+        cols = self._policy_cols(target, cs)
+        if cs.policy is None or (
+            cols is not None and cs.policy.cols is not cols
+            and cs.policy.cols != cols
+        ):
             cs.policy = self.kernel.stage_policy(cs.programs, cs.ms, cols=cols)
         return cs.policy
 
@@ -378,16 +836,32 @@ class TorchDriver(RegoDriver):
 
     def _encode_reviews(
         self, target: str, reviews: List[Any], ns_cache: Dict[str, Any],
-        vocab: Any = None,
+        vocab: Any = None, keep_fn: Optional[Callable[[int], bool]] = None,
     ):
-        """-> (tok, fb, (g, g1), row_fallback). `vocab` overrides the
-        intern target (review batches pass an OverlayVocab)."""
+        """-> (tok, fb, (g, g1), row_fallback, skipped). `vocab` overrides
+        the intern target (review batches pass an OverlayVocab).
+
+        `keep_fn` (spath vocab id -> bool) is the IR feature-liveness
+        mask: provably dead token columns are dropped and the survivors
+        compacted BEFORE the L/G bucketing below, so padding shrinks with
+        the live set. Overflow is decided by the unfiltered encode (a
+        truncated row already lost arbitrary live tokens and keeps
+        routing to the interpreter); `skipped` counts the dropped slots."""
         if vocab is None:
             vocab = self.vocab
         handler = self._handler(target)
         table = encode_token_table(
             reviews, vocab, native=(self.encoder == "native")
         )
+        skipped = 0
+        if keep_fn is not None:
+            table, skipped = mask_token_table(table, keep_fn)
+            if skipped:
+                self.columns_skipped_static += skipped
+                self.liveness_batches += 1
+                self._count(
+                    "columns_skipped_static_total", skipped, target=target
+                )
         feats = [
             handler.encode_review_features(r, ns_cache, vocab) for r in reviews
         ]
@@ -413,7 +887,7 @@ class TorchDriver(RegoDriver):
         if g1 > G_CAP:
             g1 = G_CAP
             row_fallback |= (table.idx1 >= G_CAP).any(axis=1)
-        return tok, features_to_np(fb), (g, g1), row_fallback
+        return tok, features_to_np(fb), (g, g1), row_fallback, skipped
 
     def _audit_corpus(self, target: str) -> Optional[_Corpus]:
         corpus = self._corpus.get(target)
@@ -424,7 +898,7 @@ class TorchDriver(RegoDriver):
         if not reviews:
             self._corpus.pop(target, None)
             return None
-        tok, fb, (g, g1), row_fallback = self._encode_reviews(
+        tok, fb, (g, g1), row_fallback, _ = self._encode_reviews(
             target, reviews, self._ns_cache(target)
         )
         corpus = _Corpus(
@@ -451,8 +925,9 @@ class TorchDriver(RegoDriver):
         self.patterns.sync()
         self.tables.sync()
         overlay = OverlayVocab(self.vocab)
-        tok, fb, (g, g1), row_fallback = self._encode_reviews(
-            target, reviews, ns_cache, vocab=overlay
+        tok, fb, (g, g1), row_fallback, skipped = self._encode_reviews(
+            target, reviews, ns_cache, vocab=overlay,
+            keep_fn=self._liveness_keep_fn(cs, overlay),
         )
         v_base = overlay.base_len
         # fill table and pattern rows for overlay entries to a fixed point
@@ -487,7 +962,100 @@ class TorchDriver(RegoDriver):
             data_gen=-1, reviews=reviews, tok=tok, fb=fb, g=g, g1=g1,
             row_fallback=row_fallback, vocab=overlay, v_base=v_base,
             ov_member=ov_member, ov_capture=ov_capture, ov_tabs=ov_tabs,
+            skipped_static=skipped,
         )
+
+    # -- IR static-analysis plane (analysis/ir.py) ---------------------------
+
+    def _cs_live_pids(self, cs: _ConstraintSet) -> Optional[frozenset]:
+        """Live pattern indices over the set's compiled programs, computed
+        once per set. None means keep-all: some program failed the
+        pad-equivalence proof, or the analysis itself failed (refuse,
+        never guess)."""
+        if cs.live_pids is False:
+            from ..analysis.ir import corpus_liveness
+
+            try:
+                cs.live_pids = corpus_liveness(cs.programs)
+            except Exception:
+                cs.live_pids = None
+        return cs.live_pids
+
+    def _liveness_keep_fn(
+        self, cs: _ConstraintSet, vocab: Any
+    ) -> Optional[Callable[[int], bool]]:
+        """Token keep-predicate for a batch only this set's programs will
+        read: spath vocab id -> does the path match ANY live pattern. None
+        disables filtering (liveness off, or the set is not provably
+        maskable). A subset set gets its own, tighter mask: each subset
+        dispatch encodes its own batch."""
+        if not self.liveness_enabled:
+            return None
+        live = self._cs_live_pids(cs)
+        if live is None:
+            return None
+        pat_segs = [self.patterns.segs(p) for p in sorted(live)]
+        memo: Dict[int, bool] = {}
+
+        def keep(pid: int) -> bool:
+            hit = memo.get(pid)
+            if hit is None:
+                s = vocab.string(pid)
+                if isinstance(s, str) and s.startswith("p:"):
+                    segs = s[2:].split(".")
+                    hit = any(_match(ps, segs)[0] for ps in pat_segs)
+                else:
+                    hit = True  # not a path entry: refuse to drop
+                memo[pid] = hit
+            return hit
+
+        return keep
+
+    def liveness_stats(self) -> Dict[str, Any]:
+        """Liveness-plane counters."""
+        return {
+            "enabled": self.liveness_enabled,
+            "columns_skipped_static": self.columns_skipped_static,
+            "liveness_batches": self.liveness_batches,
+        }
+
+    def ir_report(self, target: str):
+        """IR static-analysis report (analysis/ir.py IrReport) over the
+        target's current compiled constraint set: GK-P0xx diagnostics,
+        fused-path taxonomy, liveness summary and specialization
+        certificates; computed once per constraint generation."""
+        ent = self._ir_reports.get(target)
+        if ent is not None and ent[0] == self._constraint_gen:
+            return ent[1]
+        from ..analysis.ir import ir_from_programs
+
+        with self._mutex:
+            cs = self._constraint_set(target)
+            if cs is None:
+                return None
+            gen = self._constraint_gen
+            items = [
+                (
+                    f"constraint:{c.get('kind')}/"
+                    f"{(c.get('metadata') or {}).get('name', '')}",
+                    c.get("kind"),
+                    prog,
+                    H.constraint_parameters(c),
+                )
+                for c, prog in zip(cs.constraints, cs.programs)
+            ]
+            rep = ir_from_programs(items, fallback_codes=cs.fallback_codes)
+            rep.liveness["patterns_total"] = self.patterns.n_patterns
+            self._ir_reports[target] = (gen, rep)
+        return rep
+
+    def attach_ir_report(self, target: str, report: Any) -> None:
+        """Re-attach an already computed IR report after a module swap
+        (the attach_report contract)."""
+        if report is None:
+            return
+        with self._mutex:
+            self._ir_reports[target] = (self._constraint_gen, report)
 
     # -- device dispatch -----------------------------------------------------
 
@@ -712,9 +1280,48 @@ class TorchDriver(RegoDriver):
         if m is None or m.group(2) != "violation" or tracing:
             return super().query_many(path, inputs, tracing)
         target = m.group(1)
+        inputs = list(inputs)
         with self._mutex:
-            split = self._query_batch(target, list(inputs), None)
-        return [Response(target=target, results=r) for r in split]
+            # the monolithic dispatch's canaries: golden keyed per
+            # constraint generation, attributed to logical device 0
+            sigkey = f"gen{self._constraint_gen}"
+            canaries = self._canary_pack(
+                target, sigkey, self._constraints(target), len(inputs)
+            )
+            split = self._query_batch(
+                target, inputs + [{"review": r} for r in canaries], None
+            )
+        self._canary_check(target, sigkey, 0, split[len(inputs):])
+        return [Response(target=target, results=r) for r in split[:len(inputs)]]
+
+    def query_host(
+        self, path: str, input: Any = None, subset=None
+    ) -> Response:
+        """Evaluate on the host INTERPRETER, never touching the device
+        (tpudriver.py:1796-1828): the oracle a fused answer is checked
+        against (`Client.review_host`, the integrity plane's shadow
+        oracle). `subset` scopes a violation query to some constraints.
+        The base driver's query_host answers a query without `subset`
+        through `query`, which here is the fused path."""
+        m = _HOOK_RE.match(path)
+        if m is None:
+            raise ValueError(f"unsupported query path: {path!r}")
+        target, hook = m.group(1), m.group(2)
+        with self._mutex:
+            if hook == "violation":
+                constraints = None
+                if subset is not None:
+                    sub = frozenset(subset)
+                    constraints = [
+                        c for c in self._constraints(target)
+                        if constraint_key(c) in sub
+                    ]
+                results = RegoDriver._violation(
+                    self, target, input or {}, None, constraints=constraints,
+                )
+            else:
+                results = RegoDriver._audit(self, target, None)
+        return Response(target=target, results=results)
 
     def query_many_subset(
         self, path: str, inputs: Sequence[Any], subset, device: int = 0,
@@ -722,28 +1329,134 @@ class TorchDriver(RegoDriver):
     ) -> List[Response]:
         """Partition-scoped batched violation hook: only `subset`'s
         constraints (keys per `constraint_key`) for every input, as one
-        fused dispatch, like query_many. Merged across a plan's subsets in
-        `constraint_keys` order, the results equal query_many's.
-        `device` and `partition` are accepted and change no result: the
-        partition plane that reads them (fault point, canaries, cost
-        attribution) is not ported (ROADMAP A3c)."""
+        fused dispatch attributed to logical `device`, like query_many.
+        The fault point `driver.device_dispatch[device=N]` gates the whole
+        partition dispatch. Canary reviews ride in the batch's padding
+        slots and are stripped before the results return; the dispatch's
+        seconds are attributed under `partition` (default: `device`).
+        Merged across a plan's subsets in `constraint_keys` order
+        (`parallel.partition.merge_partition_results`), the results equal
+        query_many's."""
         m = _HOOK_RE.match(path)
         if m is None or m.group(2) != "violation":
             raise ValueError(f"unsupported partition query path: {path!r}")
         target = m.group(1)
+        fire(device_point("driver.device_dispatch", device))
+        inputs = list(inputs)
         with self._mutex:
             cs = self._subset_cset(target, frozenset(subset))
             if cs is None:
                 return [Response(target=target, results=[]) for _ in inputs]
-            split = self._query_batch(target, list(inputs), None, cset=cs)
-        return [Response(target=target, results=r) for r in split]
+            sigkey = cs.signature or f"gen{self._constraint_gen}"
+            canaries = self._canary_pack(
+                target, sigkey, cs.constraints, len(inputs)
+            )
+            split = self._query_batch(
+                target, inputs + [{"review": r} for r in canaries], None,
+                cset=cs,
+                partition=(partition if partition is not None else device),
+            )
+        self._canary_check(
+            target, sigkey, device, split[len(inputs):],
+            subset=frozenset(subset),
+        )
+        return [Response(target=target, results=r) for r in split[:len(inputs)]]
+
+    def prepare_subset(self, path: str, subset, device: int = 0) -> bool:
+        """Stage one partition's sub-program onto its logical device: the
+        restage step of a re-home, behind the fault point
+        `driver.restage[device=N]`. A signature-unchanged subset carries
+        its staged set across the generation bump. A changed one is built
+        and staged as a SHADOW set while the old set stays live; with an
+        integrity plane it must then replay the golden canaries
+        (`_golden_gate`); the fault point `compile.swap` sits between
+        stage and swap, and a failure there leaves the old set serving.
+        Returns False (not an error) when the gate rejects the shadow or
+        the constraints churned again mid-stage. The shadow's policy is
+        staged under the serving mutex, unlike the reference's: it
+        compiles nothing here, and staging reads the pattern and string
+        registries, which a concurrent compile under the mutex grows."""
+        m = _HOOK_RE.match(path)
+        if m is None or m.group(2) != "violation":
+            raise ValueError(f"unsupported partition query path: {path!r}")
+        target = m.group(1)
+        fs = frozenset(subset)
+        fire(device_point("driver.restage", device))
+        with self._mutex:
+            gen = self._constraint_gen
+            cs = self._cset_sub.get((target, fs))
+            if (
+                cs is not None and cs.constraint_gen != gen
+                and not self._carry_forward(target, fs, cs)
+            ):
+                cs = None
+            if cs is not None:
+                self._staged_policy(target, cs)
+                return True
+            shadow = self._build_subset_cset(target, fs)
+            if shadow is None:
+                self._cset_sub.pop((target, fs), None)
+                return True
+            self._staged_policy(target, shadow)
+        if self.integrity is not None and not self._golden_gate(target, shadow):
+            self._count(
+                "program_swap_rejected_total", reason="golden_mismatch",
+                target=target,
+            )
+            return False
+        fire("compile.swap")
+        with self._mutex:
+            if self._constraint_gen != gen:
+                return False
+            self._cset_sub.pop((target, fs), None)
+            while len(self._cset_sub) >= self._cset_sub_max:
+                self._cset_sub.popitem(last=False)
+            self._cset_sub[(target, fs)] = shadow
+            self._swap_gen += 1
+            self.subset_swaps += 1
+            self._count("program_swap_total", target=target)
+        return True
+
+    def _golden_gate(self, target: str, shadow: _ConstraintSet) -> bool:
+        """Swap gate: replay the golden canary batch through the STAGED
+        (not yet live) set and compare digests with the interpreter-pinned
+        golden set. The fault point `integrity.selftest` injects a
+        corrupting shadow. The port compiles no kernel, so the replay
+        always runs on the device."""
+        from ..integrity.canary import result_digest
+
+        sigkey = shadow.signature or f"gen{self._constraint_gen}"
+        try:
+            entry = self.integrity.golden_for(
+                target, sigkey, shadow.constraints,
+                self._interp_closure(target, shadow.constraints),
+            )
+        except Exception:
+            entry = None
+        if entry is None or not entry.get("reviews"):
+            return True
+        try:
+            fire("integrity.selftest")
+        except FaultError:
+            return False
+        try:
+            with self._mutex:
+                split = self._query_batch(
+                    target, [{"review": r} for r in entry["reviews"]], None,
+                    cset=shadow,
+                )
+        except Exception:
+            return False
+        got = [result_digest(rs) for rs in split]
+        return got == entry["digests"][: len(got)]
 
     def _query_batch(
         self, target: str, inputs: List[Any], trace: Optional[List[str]],
-        cset: Optional[_ConstraintSet] = None,
+        cset: Optional[_ConstraintSet] = None, partition=None,
     ) -> List[List[Result]]:
         """Autoreject results, then the fused evaluation, per review, over
-        `cset` (default: every constraint of the target)."""
+        `cset` (default: every constraint of the target); `partition`
+        labels the dispatch's attributed seconds."""
         handler = self._handler(target)
         constraints = (
             cset.constraints if cset is not None else self._constraints(target)
@@ -764,7 +1477,8 @@ class TorchDriver(RegoDriver):
                     trace.extend(f"autoreject: {_cname(c)}" for c in rej_constraints)
             out.append(auto)
         split = self._eval_reviews_split(
-            target, reviews, trace, corpus=None, cset=cset
+            target, reviews, trace, corpus=None, cset=cset,
+            partition=partition,
         )
         return [a + r for a, r in zip(out, split)]
 
@@ -789,12 +1503,14 @@ class TorchDriver(RegoDriver):
         corpus: Optional[_Corpus],
         encode_s: float = 0.0,
         cset: Optional[_ConstraintSet] = None,
+        partition=None,
     ) -> List[List[Result]]:
         """Fused evaluation on the device, then rendering of the sparse
         pairs that need host work; results grouped per review in the
         interpreter driver's (review-major) order. `encode_s`: seconds
         the caller spent encoding `corpus` (the cached audit corpus);
-        `cset`: the constraint set (default: the target's whole set)."""
+        `cset`: the constraint set (default: the target's whole set);
+        `partition`: the label of the attributed dispatch seconds."""
         t_start = time.perf_counter()
         with self._mutex:
             cs = cset if cset is not None else self._constraint_set(target)
@@ -880,6 +1596,7 @@ class TorchDriver(RegoDriver):
                 per_review[n_i].extend(out)
                 n_results += len(out)
             phases["render"] = time.perf_counter() - t_render
+            self._attribute_dispatch(cs, phases["dispatch"], partition)
             self.stats = {
                 "compiled_pairs": stat_c,
                 "interp_pairs": stat_i,
@@ -896,10 +1613,17 @@ class TorchDriver(RegoDriver):
                 "render_cache_hits": n_cache_hits,
                 "render_errors": self._render_errors,
                 "hot_redispatches": self._hot_redispatches,
+                # dead token slots the IR liveness mask dropped from this
+                # batch's encode (0 for the keep-all audit corpus)
+                "columns_skipped_static": corpus.skipped_static,
                 "phase_seconds": phases,
                 # device table uploads of this query: whole padded tables
                 # vs new vocab rows (parallel/fused.py _tables_device)
                 "upload": upload,
+                # the diagnostic code of every interpreter-routed
+                # template in this query's constraint set
+                "fallback_codes": dict(cs.fallback_codes or {}),
+                "analyzer_mismatches": self.analyzer_mismatches,
             }
             if trace is not None:
                 trace.append(

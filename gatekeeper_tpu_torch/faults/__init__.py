@@ -12,7 +12,14 @@ from .errors import (
     EvaluationUnavailable,
     ShedError,
 )
-from .injection import FAULTS, FaultError, FaultRegistry, FaultSpec, fire
+from .injection import (
+    FAULTS,
+    FaultError,
+    FaultRegistry,
+    FaultSpec,
+    device_point,
+    fire,
+)
 
 __all__ = [
     "AdmissionUnavailable",
@@ -28,5 +35,6 @@ __all__ = [
     "HALF_OPEN",
     "OPEN",
     "ShedError",
+    "device_point",
     "fire",
 ]

@@ -1,7 +1,6 @@
 # Copied from gatekeeper_tpu/faults/injection.py; only these edits differ.
-# Edit: arming from GATEKEEPER_TPU_FAULTS (configure_from_env), the
-# clock-jump skew(), device_point and FaultRegistry.snapshot are left
-# out; points are armed through FAULTS.arm. The docstring names the
+# Edit: arming from GATEKEEPER_TPU_FAULTS (configure_from_env) and the
+# clock-jump skew() are left out; points are armed through FAULTS.arm. The docstring names the
 # port's ladder: a failed fused batch goes to the fail policy verdict.
 """Deterministic fault-injection registry.
 
@@ -39,6 +38,15 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 MODES = ("error", "hang", "clock_jump")
+
+
+def device_point(point: str, device) -> str:
+    """Device-labeled fault point name (docs/robustness.md §Fault
+    domains): `device_point("driver.device_dispatch", 1)` ->
+    `"driver.device_dispatch[device=1]"`. The label is part of the
+    point NAME, so arm/hit/fire accounting — and the env-string grammar
+    — stays exact per device with zero new registry machinery."""
+    return f"{point}[device={device}]"
 
 
 class FaultError(RuntimeError):
@@ -129,6 +137,26 @@ class FaultRegistry:
 
     def active(self) -> bool:
         return self._active
+
+    # -- the fault point ----------------------------------------------------
+
+    def snapshot(self) -> Dict[str, Dict]:
+        """Armed-point inventory with hit/fire counts — the soak
+        reporter logs this at each disarm so the evidence artifact
+        carries WHICH faults fired and how often, not just that an SLO
+        dip happened around the right timestamp."""
+        with self._lock:
+            return {
+                point: {
+                    "mode": s.mode,
+                    "count": s.count,
+                    "after": s.after,
+                    "delay_s": s.delay_s,
+                    "hits": s.hits,
+                    "fired": s.fired,
+                }
+                for point, s in self._specs.items()
+            }
 
     # -- the fault point ----------------------------------------------------
 

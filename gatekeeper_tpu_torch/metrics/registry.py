@@ -3,8 +3,10 @@
 # costs, flight records, decisions, SLO, scheduler, partitions, programs)
 # and their renderers (export_traces, export_decisions, _traces_n,
 # _debug_costs_k, and the json import only they used) read planes that are
-# not ported (ROADMAP A3, A10); the module logger is named
-# gatekeeper_tpu_torch.metrics.
+# not ported (ROADMAP A3, A10), or, for costs, partitions and programs,
+# serve documents no route of the port's webhook reads (the attributor's
+# table(), the dispatcher's plan_table() and programs_table() build them);
+# the module logger is named gatekeeper_tpu_torch.metrics.
 """In-process metrics: counters, gauges, distributions with optional
 histogram buckets; Prometheus text format exposition (with OpenMetrics
 trace-id exemplars) over stdlib HTTP. Per-family series cardinality is

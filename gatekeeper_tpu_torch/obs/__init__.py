@@ -1,8 +1,10 @@
 """Observability: the in-process tracer the audit manager and the webhook
 record their spans into, the W3C traceparent helpers the webhook server
 reads, the per-admission decision log and the live SLO engine that feeds
-the admission scheduler (a subset of gatekeeper_tpu/obs)."""
+the admission scheduler, and the per-constraint device-time cost
+attributor (a subset of gatekeeper_tpu/obs)."""
 
+from .attribution import CostAttributor
 from .decisionlog import (
     DECISION_SCHEMA_FIELDS,
     DecisionLog,
@@ -21,7 +23,7 @@ from .tracer import (
 )
 
 __all__ = [
-    "DECISION_SCHEMA_FIELDS", "DecisionLog", "NOOP_SPAN", "QuantileSketch",
+    "CostAttributor", "DECISION_SCHEMA_FIELDS", "DecisionLog", "NOOP_SPAN", "QuantileSketch",
     "SloEngine", "SloTarget", "Span", "SpanContext", "Tracer",
     "check_decision_schema", "derive_trace_id", "export_slo",
     "format_traceparent", "parse_traceparent", "start_span",

@@ -5,8 +5,6 @@
 # source, and a failed build raises with the compiler's output instead of
 # returning None (there is no cached binary in ~/.cache and no
 # GATEKEEPER_TPU_NATIVE_DIR).
-# Edit: BridgeStack takes no `attributor` (cost attribution is not ported,
-# ROADMAP A3c).
 """Admission serving bridge, Python back half.
 
 Pairs with native/bridge_frontend.cpp (SURVEY §2.4 row 3 / §7 step 5):
@@ -175,6 +173,7 @@ class BridgeStack:
         # so the deadline policy + fair-share quotas apply here too
         sched_policy: str = "fifo",
         slo=None,
+        attributor=None,
         **handler_kwargs,
     ):
         from .namespacelabel import NamespaceLabelHandler
@@ -189,7 +188,7 @@ class BridgeStack:
             metrics=metrics, tracer=tracer,
             max_queue=max_queue if max_queue is not None
             else DEFAULT_MAX_QUEUE,
-            sched_policy=sched_policy, slo=slo,
+            sched_policy=sched_policy, slo=slo, attributor=attributor,
         )
         handler_kwargs.setdefault("metrics", metrics)
         handler_kwargs.setdefault("tracer", tracer)

@@ -11,12 +11,27 @@
 # interpreter: each of its requests gets EvaluationUnavailable, which the
 # handler answers with the endpoint's fail-open/fail-closed envelope (the
 # reference's failurePolicy).
+# Edit: the partitioned dispatch keeps that rule. A partition that fails,
+# whose device breaker is open or that cannot be staged is not answered
+# on the host interpreter: each request its mask selects gets
+# EvaluationUnavailable, counted per partition (the dispatcher's
+# "unavailable" route and webhook_partition_unavailable_total); requests
+# that touch only healthy partitions get the fused, merged answer; a plan
+# with every device dead answers the whole batch so. A partition is staged
+# synchronously (ensure_staged with wait=True): a restage compiles no
+# kernel here. The whole-plane fault point fails every partition's breaker
+# once and answers the batch with the fail policy. requests_batched
+# counts the requests that got a fused answer.
+# Edit: with no Runner in this package yet (ROADMAP A3e), WebhookServer
+# hands `integrity` and `attributor` to the driver (set_integrity,
+# set_attributor) as the reference's Runner does.
 # Edit: planes that are not ported are left out with their arguments:
-# mutation (ROADMAP A5) and the agent plane (A10), fault-domain partitions
-# with their dispatch-row series, cost attribution, the corpus analyzer,
-# integrity sampling and external-data fetch facts (A3c, A3d), the flight
-# recorder (A10), TLS and cert rotation (A3e). A path other than /v1/admit
-# and /v1/admitlabel is answered 404.
+# mutation (ROADMAP A5) and the agent plane (A10), the corpus analyzer
+# (A5; the partitioner gets corpus=None), external-data fetch facts (A3d),
+# the flight recorder (A10), TLS and cert rotation (A3e). A path other
+# than /v1/admit and /v1/admitlabel is answered 404, so the /readyz and
+# /debug/partitions, /debug/programs documents are not served (the
+# dispatcher's plan_table and programs_table build them).
 # Edit: the deadline clock is time.monotonic(): the port's fault registry
 # has no clock-jump skew.
 """Micro-batching admission server.
@@ -62,6 +77,7 @@ from ..faults import (
     DeadlineExceeded,
     EvaluationTimeout,
     EvaluationUnavailable,
+    FaultError,
     fire,
 )
 from .namespacelabel import NamespaceLabelHandler
@@ -127,24 +143,41 @@ class MicroBatcher:
         # device circuit breaker: None = construct the default; False =
         # disabled; or pass a faults.CircuitBreaker to share/observe
         breaker=None,
+        # device fault domains: a parallel.partition.PartitionDispatcher
+        # replaces the single per-plane breaker with per-(device, plane)
+        # breakers — batches fan out over constraint-subset partitions, a
+        # failed partition fails ONLY the requests its subset matches
+        # (fail policy), and quarantined devices re-home their partitions
+        partitioner=None,
         # obs.DecisionLog: the batch worker stashes per-request
-        # dispatch facts (route, rows_dispatched/rows_total, cache
-        # counts, device-time share) under each request's trace id;
-        # the handler claims them when it records the decision
+        # dispatch facts (route, partition set dispatched vs
+        # mask-skipped, rows_dispatched/rows_total, cache counts,
+        # device-time share) under each request's trace id; the handler
+        # claims them when it records the decision
         decisions=None,
         # admission scheduling: "fifo" is bit-compatible with the
         # pre-scheduler queue; "deadline" turns on EDF batch formation,
         # predictive shedding, and per-tenant fair-share quotas. slo
         # (SloEngine) feeds the overload/saturation loop and the batch
-        # cost EWMA.
+        # cost EWMA; attributor seeds the cost model before the EWMA warms.
         sched_policy: str = "fifo",
         slo=None,
+        attributor=None,
+        # integrity.IntegrityPlane: post-response shadow-oracle
+        # sampling — a deterministic CRC(trace_id) fraction of live
+        # admissions re-evaluates asynchronously on the host interpreter
+        integrity=None,
     ):
         self.client = client
         self.target = target
+        self.partitioner = partitioner
         self.decisions = decisions
+        self.integrity = integrity
         # (constraint generation, corpus size) cache for rows facts
         self._rows_cache: Optional[Tuple[Any, int]] = None
+        if partitioner is not None and breaker is None:
+            # the per-device breaker bank replaces the plane breaker
+            breaker = False
         # the target handler owns serving-plane review construction
         # (K8s: AdmissionRequest -> AugmentedReview); clients without a
         # target registry (test fakes) get the default handler
@@ -176,6 +209,7 @@ class MicroBatcher:
             max_queue=max_queue,
             clock=self._now,
             slo=slo,
+            attributor=attributor,
             metrics=metrics,
         )
         # (request, future, span ctx | None, (wall, perf) submit stamp,
@@ -248,6 +282,27 @@ class MicroBatcher:
                 return None
         return cached[1]
 
+    def _note_rows(self, partition, rows_dispatched, rows_total) -> None:
+        """The pruning-efficiency series: constraint-rows actually
+        dispatched vs the full corpus, per partition."""
+        if self.metrics is None or not rows_total:
+            return
+        self.metrics.record(
+            "dispatch_rows_dispatched_total", rows_dispatched,
+            plane=self.plane, partition=str(partition),
+        )
+        self.metrics.record(
+            "dispatch_rows_total", rows_total,
+            plane=self.plane, partition=str(partition),
+        )
+
+    def _liveness_skipped_count(self) -> int:
+        """Driver-cumulative count of provably dead token slots the IR
+        feature-liveness mask dropped before padding; dispatch sites
+        report the per-batch delta as a decision fact."""
+        drv = getattr(self.client, "_driver", None) if self.client else None
+        return int(getattr(drv, "columns_skipped_static", 0) or 0)
+
     def _driver_consumption(self) -> Dict[str, Any]:
         """Per-batch consumption facts from the driver's last dispatch
         stats: render-cache hits and the batch's device-execute window
@@ -265,9 +320,12 @@ class MicroBatcher:
 
     def _note_decisions(
         self, batch, route: str, rows_dispatched=None, rows_total=None,
+        per_request=None, columns_skipped_static: Optional[int] = None,
     ) -> None:
-        """Stash dispatch facts for every traced member request: route,
-        rows, cache hits and the batch's device share."""
+        """Stash dispatch facts for every traced member request. Batch-
+        shared facts (route, rows, cache hits, device share) apply to all;
+        `per_request` maps batch index -> overriding facts (the
+        partitioned path's per-request partition sets)."""
         if self.decisions is None:
             return
         cons = self._driver_consumption()
@@ -280,15 +338,24 @@ class MicroBatcher:
                 rows_dispatched if rows_dispatched is not None
                 else rows_total
             )
+        if columns_skipped_static is not None:
+            # dead token slots the IR liveness mask dropped from this
+            # batch's encode
+            base["columns_skipped_static"] = columns_skipped_static
         if dev is not None and batch:
             # the batch's measured device window split evenly across
-            # members — the request-level share of the batch's cost
+            # members — the request-level share of what the constraint-
+            # level CostAttributor accounts exactly
             base["device_seconds_share"] = round(dev / len(batch), 9)
-        for _, _, ctx, _, _, _ in batch:
+        for i, (_, _, ctx, _, _, _) in enumerate(batch):
             tid = getattr(ctx, "trace_id", None)
             if tid is None:
                 continue
-            self.decisions.note_dispatch(tid, **base)
+            facts = base
+            if per_request is not None and i in per_request:
+                facts = dict(base)
+                facts.update(per_request[i])
+            self.decisions.note_dispatch(tid, **facts)
 
     def _shed(self, fut: Future, exc: Exception, reason: str,
               ctx=None, sub_wall: Optional[float] = None) -> None:
@@ -445,6 +512,15 @@ class MicroBatcher:
             )
             for request, _, _, _, _, _ in batch
         ]
+        if self.partitioner is not None:
+            plan = None
+            try:
+                plan = self.partitioner.plan()
+            except Exception:
+                plan = None  # plan failure: the monolithic path still serves
+            if plan is not None and plan.partitions:
+                self._dispatch_partitioned(batch, reviews, plan, wall0, t0)
+                return
         breaker = self.breaker
         if breaker is not None and not breaker.allow():
             # breaker open: the fused path has been failing — answer with
@@ -455,6 +531,7 @@ class MicroBatcher:
                 )
             self._unavailable(batch, wall0, t0, "circuit breaker open")
             return
+        skip0 = self._liveness_skipped_count()
         try:
             fire("webhook.batch_dispatch")
             all_responses = self.client.review_many(reviews)
@@ -474,14 +551,245 @@ class MicroBatcher:
             self.metrics.record("webhook_batches_total", 1)
             self.metrics.observe("webhook_batch_size", len(batch))
         self._record_spans(batch, wall0, t0, route="batched")
+        # the monolithic dispatch evaluates the whole corpus for every
+        # member (dispatched == total under the "mono" partition label)
         rows = self._corpus_rows()
+        if rows is not None:
+            self._note_rows("mono", rows * len(batch), rows * len(batch))
         self._note_decisions(
             batch, self._driver_route(),
             rows_dispatched=rows, rows_total=rows,
+            columns_skipped_static=self._liveness_skipped_count() - skip0,
         )
-        for (_, fut, _, _, _, _), responses in zip(batch, all_responses):
+        for (_, fut, ctx, _, _, _), review, responses in zip(
+            batch, reviews, all_responses
+        ):
             resp = responses.by_target.get(self.target)
-            fut.set_result(resp.results if resp is not None else [])
+            results = resp.results if resp is not None else []
+            fut.set_result(results)
+            self._note_integrity(ctx, review, results, route="batched")
+
+    def _note_integrity(self, ctx, review, results, **facts) -> None:
+        """Offer one served admission to the verdict-integrity plane's
+        shadow oracle (CRC-sampled, asynchronous, post-response). Never
+        fails a request."""
+        if self.integrity is None:
+            return
+        try:
+            self.integrity.note_live(
+                getattr(ctx, "trace_id", None), review, results,
+                plane=self.plane, **facts,
+            )
+        except Exception:
+            pass
+
+    def _dispatch_partitioned(self, batch, reviews, plan,
+                              wall0: float, t0: float) -> None:
+        """Fault-domain dispatch: fan the batch out over the plan's
+        constraint-subset partitions, each gated by its device's breaker
+        and evaluating only the requests its match mask selects. A
+        partition that is open, unstaged or failing answers the requests
+        it selects with EvaluationUnavailable (the fail policy envelope);
+        every other request gets the fused results merged back into the
+        monolithic order (merge_partition_results), equal to the
+        monolithic dispatch's."""
+        from ..parallel.partition import merge_partition_results
+
+        part = self.partitioner
+        client = self.client
+        if plan.all_dead:
+            # the whole device fleet is quarantined; still run probes, or
+            # nothing would ever bring a device back
+            if self.metrics is not None:
+                self.metrics.record(
+                    "webhook_degraded_dispatch_total", 1, plane=self.plane
+                )
+            for p in plan.partitions:
+                self._note_unavailable(p)
+            self._unavailable(
+                batch, wall0, t0, "every partition device is quarantined"
+            )
+            part.run_probes(reviews)
+            return
+        try:
+            fire("webhook.batch_dispatch")
+        except FaultError as e:
+            # a whole-plane fault (the unlabeled point): every device pays
+            # a failure, as before partitioning
+            for p in plan.partitions:
+                part.breaker(p.device).record_failure()
+                self._note_unavailable(p)
+            self.batch_failures += 1
+            if self.metrics is not None:
+                self.metrics.record("webhook_batch_failures_total", 1)
+            self._unavailable(batch, wall0, t0, f"fused batch failed: {e!r}")
+            part.run_probes(reviews)
+            return
+        skip0 = self._liveness_skipped_count()
+        try:
+            masks = client.partition_match_mask(
+                reviews, [p.subset for p in plan.partitions]
+            )
+        except Exception:
+            # sound fallback: every partition sees every request
+            masks = [[True] * len(reviews) for _ in plan.partitions]
+        fused: List[Any] = []
+        down: Dict[int, str] = {}  # partition index -> why it is down
+        skipped_parts: List[int] = []
+        for p, mask in zip(plan.partitions, masks):
+            if not any(mask):
+                # nothing in this batch touches the partition: zero cost —
+                # the blast-radius contract for requests matching only
+                # healthy subsets
+                part.note_dispatch("skipped", p.device)
+                skipped_parts.append(p.index)
+                continue
+            br = part.breaker(p.device)
+            if not br.allow():
+                if self.metrics is not None:
+                    self.metrics.record(
+                        "webhook_degraded_dispatch_total", 1,
+                        plane=self.plane,
+                    )
+                down[p.index] = f"device {p.device} breaker open"
+            elif not part.ensure_staged(p):
+                # restage failed (backing off) or lost a race with churn
+                down[p.index] = f"partition {p.index} not staged"
+            else:
+                fused.append((p, br))
+
+        # mask-sliced dispatch: each partition evaluates ONLY the requests
+        # its mask row selects; unselected rows contribute no result by
+        # the mask's definition
+        sel_by_part = {
+            p.index: [i for i, hit in enumerate(masks[p.index]) if hit]
+            for p in plan.partitions
+        }
+
+        def run_one(p, br):
+            sel = sel_by_part[p.index]
+            try:
+                return p, br, client.review_many_subset(
+                    [reviews[i] for i in sel], p.subset,
+                    device=p.device, partition=p.index,
+                ), None
+            except Exception as e:
+                return p, br, None, e
+
+        executor = part.executor if len(fused) > 1 else None
+        if executor is not None:
+            outcomes = list(executor.map(lambda a: run_one(*a), fused))
+        else:
+            outcomes = [run_one(p, br) for p, br in fused]
+        # partition index -> per-request result lists
+        part_results: Dict[int, List[List[Any]]] = {}
+        for p, br, resps, exc in outcomes:
+            if exc is None:
+                br.record_success()
+                part.note_dispatch("fused", p.device)
+                rows: List[List[Any]] = [[] for _ in reviews]
+                for i, responses in zip(sel_by_part[p.index], resps):
+                    resp = responses.by_target.get(self.target)
+                    rows[i] = resp.results if resp is not None else []
+                part_results[p.index] = rows
+            else:
+                br.record_failure()
+                self.batch_failures += 1
+                if self.metrics is not None:
+                    self.metrics.record("webhook_batch_failures_total", 1)
+                part.note_dispatch("failed", p.device)
+                down[p.index] = (
+                    f"partition {p.index} on device {p.device} failed: "
+                    f"{exc!r}"
+                )
+        # the fail policy, scoped: only the requests a down partition's
+        # mask selects
+        errors: Dict[int, Exception] = {}
+        degraded_reqs: Dict[int, List[int]] = {}
+        for p in plan.partitions:
+            why = down.get(p.index)
+            if why is None:
+                continue
+            self._note_unavailable(p)
+            for i in sel_by_part[p.index]:
+                degraded_reqs.setdefault(i, []).append(p.index)
+                errors.setdefault(i, EvaluationUnavailable(why))
+        self.batches_dispatched += 1
+        self.requests_batched += len(batch) - len(errors)
+        if self.metrics is not None:
+            self.metrics.record("webhook_batches_total", 1)
+            self.metrics.observe("webhook_batch_size", len(batch))
+        self._record_spans(
+            batch, wall0, t0, route="batched" if not down else "partitioned",
+        )
+        if self.tracer is not None and degraded_reqs:
+            # per-REQUEST accounting: only requests a down partition
+            # selected carry the span
+            wall1 = wall0 + (time.perf_counter() - t0)
+            for i, pidx in degraded_reqs.items():
+                ctx = batch[i][2]
+                if ctx is not None:
+                    self.tracer.record_span(
+                        "unavailable_subset", wall0, wall1, parent=ctx,
+                        plane=self.plane, partitions=sorted(pidx),
+                    )
+        # per-partition pruning-efficiency series — a partition evaluates
+        # only its mask-selected requests, a mask-skipped one nothing —
+        # plus the per-request partition set and mask-derived rows
+        n_rev = len(reviews)
+        key_count = {p.index: len(p.keys) for p in plan.partitions}
+        touched = len(plan.partitions) - len(skipped_parts)
+        part.note_batch_touched(touched, len(plan.partitions))
+        for p in plan.partitions:
+            self._note_rows(
+                p.index, key_count[p.index] * len(sel_by_part[p.index]),
+                key_count[p.index] * n_rev,
+            )
+        if self.decisions is not None:
+            per_request: Dict[int, Dict[str, Any]] = {}
+            for i in range(n_rev):
+                matched = [
+                    p.index for p in plan.partitions if masks[p.index][i]
+                ]
+                facts: Dict[str, Any] = {
+                    "partitions_matched": matched,
+                    "partitions_skipped": list(skipped_parts),
+                    "partitions_touched": touched,
+                    "rows_total": sum(key_count.values()),
+                    "rows_excluded_static": len(plan.excluded_static),
+                    "rows_dispatched": sum(key_count[j] for j in matched),
+                }
+                if i in degraded_reqs:
+                    facts["route"] = "unavailable"
+                    facts["partitions_unavailable"] = sorted(
+                        degraded_reqs[i]
+                    )
+                per_request[i] = facts
+            self._note_decisions(
+                batch, self._driver_route(), per_request=per_request,
+                columns_skipped_static=self._liveness_skipped_count() - skip0,
+            )
+        for i, (_, fut, ctx, _, _, _) in enumerate(batch):
+            if i in errors:
+                fut.set_exception(errors[i])
+            else:
+                merged = merge_partition_results(
+                    [rows[i] for rows in part_results.values()], plan.order,
+                )
+                fut.set_result(merged)
+                self._note_integrity(
+                    ctx, reviews[i], merged, route="partitioned",
+                )
+        part.run_probes(reviews)
+
+    def _note_unavailable(self, p) -> None:
+        """Count one partition answered with the fail policy."""
+        self.partitioner.note_dispatch("unavailable", p.device)
+        if self.metrics is not None:
+            self.metrics.record(
+                "webhook_partition_unavailable_total", 1, plane=self.plane,
+                partition=str(p.index), device=str(p.device),
+            )
 
     def _unavailable(self, batch, wall0: float, t0: float, why: str) -> None:
         """Resolve a batch the fused path did not evaluate: every request
@@ -651,12 +959,29 @@ class WebhookServer:
         # obs.DecisionLog: per-admission "why" records; None = decision
         # plane off
         decision_log=None,
+        # device fault domains: split the constraint corpus into this
+        # many partitions, each on its own logical device with its own
+        # breaker — a sick device fails only the requests its constraint
+        # subset matches, not the plane. 0/None keeps the monolithic
+        # dispatch + single plane breaker. On one card the devices are
+        # logical fault domains; every partition runs on the same GPU.
+        partitions: Optional[int] = None,
+        partition_devices: Optional[int] = None,
+        # obs.CostAttributor: handed to the driver (set_attributor); its
+        # measured per-constraint seconds feed the partition planner and
+        # the scheduler's cost model; replica tags the planner's tables
+        attributor=None,
+        replica: Optional[str] = None,
         # admission scheduling: policy for the batcher — "fifo" is the
         # bit-compatible rollback path, "deadline" enables EDF batch
         # formation + predictive shedding + fair-share quotas. slo is
         # the obs.SloEngine feeding the overload/saturation loop.
         sched_policy: str = "fifo",
         slo=None,
+        # integrity.IntegrityPlane: handed to the driver (set_integrity)
+        # for canary rows and the golden swap gate; shadow-oracle sampling
+        # on the batcher and corruption quarantine via the partitioner
+        integrity=None,
         # wire-speed ingest plane: True mounts a framed-stream listener
         # (ingest.IngestServer) next to the HTTP port — persistent
         # multiplexed connections, zero-copy AdmissionReview decode,
@@ -672,6 +997,28 @@ class WebhookServer:
         self.decision_log = decision_log
         self.request_timeout = request_timeout
         self.drain_grace_s = drain_grace_s
+        driver = getattr(client, "_driver", None)
+        for plane, setter in ((attributor, "set_attributor"),
+                              (integrity, "set_integrity")):
+            wire = getattr(driver, setter, None)
+            if plane is not None and wire is not None:
+                wire(plane)
+        self.partitioner = None
+        if partitions:
+            from ..parallel.partition import PartitionDispatcher
+
+            self.partitioner = PartitionDispatcher(
+                client,
+                target,
+                k=partitions,
+                devices=partition_devices,
+                plane="validation",
+                metrics=metrics,
+                tracer=tracer,
+                attributor=attributor,
+                replica=replica,
+                corpus=None,
+            )
         # graceful-drain state: `draining` flips BEFORE the listener
         # closes (readiness consults it), in-flight HTTP requests are
         # counted so stop() can wait for them, and on_drain callbacks
@@ -685,10 +1032,21 @@ class WebhookServer:
             namespace_getter=namespace_getter,
             metrics=metrics, tracer=tracer,
             max_queue=max_queue,
+            partitioner=self.partitioner,
             decisions=decision_log,
             sched_policy=sched_policy,
             slo=slo,
+            attributor=attributor,
+            integrity=integrity,
         )
+        self.integrity = integrity
+        if integrity is not None:
+            # the mismatch ledger trips corruption quarantine through the
+            # dispatcher; the shadow oracle re-evaluates through the
+            # client's host interpreter
+            integrity.attach_client(client)
+            if self.partitioner is not None:
+                integrity.attach_dispatcher(self.partitioner)
         self.handler = BatchedValidationHandler(
             self.batcher, excluder=excluder, metrics=metrics,
             request_timeout=request_timeout,
@@ -932,6 +1290,8 @@ class WebhookServer:
         if self.ingest is not None:
             self.ingest.close()
         self.batcher.stop()
+        if self.partitioner is not None:
+            self.partitioner.close()
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None

@@ -212,6 +212,64 @@ def test_serving_planes_run_with_jax_blocked(tmp_path):
     assert out.stdout.split() == ["200", "False", "False", "1", "1", "1"]
 
 
+DRIVER_PLANES = (
+    "gatekeeper_tpu_torch.analysis",
+    "gatekeeper_tpu_torch.analysis.analyzer",
+    "gatekeeper_tpu_torch.analysis.ir",
+    "gatekeeper_tpu_torch.analysis.report",
+    "gatekeeper_tpu_torch.integrity",
+    "gatekeeper_tpu_torch.integrity.canary",
+    "gatekeeper_tpu_torch.integrity.plane",
+    "gatekeeper_tpu_torch.parallel.partition",
+    "gatekeeper_tpu_torch.obs.attribution",
+)
+
+
+def test_driver_planes_run_with_jax_blocked():
+    """The analyzer, the integrity plane, the partition plane and the cost
+    attributor import, and a partitioned WebhookServer with canaries and
+    attribution answers an AdmissionReview on the CPU, in an interpreter
+    where importing jax or the JAX package fails."""
+    assert set(DRIVER_PLANES) <= set(_modules())
+    code = (
+        "import json, importlib, sys\n"
+        "for m in ('jax', 'jaxlib', 'gatekeeper_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {DRIVER_PLANES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from gatekeeper_tpu_torch.analysis import analyze_template\n"
+        "from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver\n"
+        "from gatekeeper_tpu_torch.integrity import IntegrityPlane\n"
+        "from gatekeeper_tpu_torch.obs import CostAttributor\n"
+        "from gatekeeper_tpu_torch.webhook import WebhookServer\n"
+        "v = {analyze_template(t).verdict for t in chip_smoke.template_docs()}\n"
+        "drv = TorchDriver(device='cpu')\n"
+        "c = chip_smoke.build_client(drv, 30, 8)\n"
+        "att, integ = CostAttributor(), IntegrityPlane()\n"
+        "s = WebhookServer(c, chip_smoke.TARGET, partitions=2,\n"
+        "                  attributor=att, integrity=integ)\n"
+        "s.start()\n"
+        "req = chip_smoke.admission_request(chip_smoke.make_pod(503), 'u')\n"
+        "(body,), _, _ = chip_smoke._drive_http(\n"
+        "    s.port, [('/v1/admit', chip_smoke._envelope(req))], 1)\n"
+        "s.stop()\n"
+        "print(sorted(v), body['response']['allowed'],\n"
+        "      s.partitioner.snapshot()['dispatches']['fused'],\n"
+        "      integ.snapshot()['canary']['rows'] > 0, att.dispatches > 0,\n"
+        "      drv.columns_skipped_static > 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [
+        "['VECTORIZED']", "False", "2", "True", "True", "True"
+    ]
+
+
 def test_entry_and_inventory_joins_run_with_jax_blocked():
     """The harness step (gatekeeper_tpu_torch.entry) and an audit over the
     uniqueness joins run on the CPU in an interpreter where importing jax

@@ -613,12 +613,48 @@ UNPORTED = [
 ]
 
 
+# the driver planes (partitions, cost attribution, integrity) have their
+# arguments since they were ported; those cases check the wiring instead
+PORTED = {"partitions", "partition_devices", "attributor", "replica",
+          "integrity"}
+
+
 @pytest.mark.parametrize("name,value", UNPORTED, ids=[n for n, _ in UNPORTED])
 def test_unported_plane_raises(client, name, value):
     """The planes not ported have no arguments: the server cannot be
-    built with one and then serve without it."""
-    with pytest.raises(TypeError, match=name):
-        WebhookServer(client, TARGET, **{name: value})
+    built with one and then serve without it. The ported driver planes
+    are accepted and handed to the batcher, the partitioner and the
+    driver."""
+    from gatekeeper_tpu_torch.integrity import IntegrityPlane
+    from gatekeeper_tpu_torch.obs import CostAttributor
+
+    if name not in PORTED:
+        with pytest.raises(TypeError, match=name):
+            WebhookServer(client, TARGET, **{name: value})
+        return
+    kw = {"partitions": 2, name: value}
+    if name == "attributor":
+        kw[name] = CostAttributor()
+    elif name == "integrity":
+        kw[name] = IntegrityPlane()
+    server = WebhookServer(client, TARGET, **kw)
+    server.start()
+    try:
+        part = server.batcher.partitioner
+        assert part is server.partitioner and part.k == 2
+        assert server.batcher.breaker is None  # the per-device bank instead
+        drv = client._driver
+        if name == "partition_devices":
+            assert part.devices == (0, 1)
+        elif name == "replica":
+            assert part.replica == "r0"
+        elif name == "attributor":
+            assert drv.attributor is kw[name] is part.attributor
+        elif name == "integrity":
+            assert drv.integrity is kw[name] is server.batcher.integrity
+            assert kw[name]._dispatcher is part
+    finally:
+        server.stop()
 
 
 @pytest.mark.parametrize("path", ["/v1/mutate", "/v1/agent/review"])
