@@ -60,15 +60,17 @@ Phases, one line each on stdout, in this order:
            after inventory, the mixed client's): verdict counts, fallback
            codes, analyzer_mismatches == 0, and any template whose route
            differs from the one the compiler alone gives it;
-  liveness the full phase's 8 review batches of 256 with the IR liveness
-           mask on and off: equal results; the token slots dropped, K2's
+  liveness 4 of the full phase's review batches of 256 with the IR
+           liveness mask on and off: equal results; the token slots dropped, K2's
            [N, L, T] and the encode and dispatch seconds of both;
   profile  device-busy against wall seconds (torch.profiler, CUDA
            activity) for a second, warm-corpus audit sweep and one more
            review batch, after the counted run;
   webhook  the full phase's client behind WebhookServer(window_ms=2.0):
-           4,096 AdmissionReviews of new pods from 256 threads, then 1,024
-           from 16 threads, over HTTP keep-alive; per load the request
+           2,048 AdmissionReviews of new pods from 256 threads over HTTP
+           keep-alive (the function's default adds 1,024 from 16 threads
+           and 4,096 requests; cut for time, as in ingest and
+           partitions); per load the request
            latency p50/p99/max, requests per second, batches and their mean
            occupancy, and the driver's phase seconds summed over the
            batches. No batch may fail or leave the fused route, the breaker
@@ -76,12 +78,13 @@ Phases, one line each on stdout, in this order:
            interpreter's answer (_oracle: a RegoDriver client with the
            same policy and no synced objects);
   ingest   the same client under sched_policy="deadline" with a
-           DecisionLog, an SloEngine and a Tracer: 4,096 framed requests
-           of new pods from 256 callers over 16 connections and 1,024 from
-           16 callers (WebhookServer(ingest=True), 10,000 ms budgets), then
-           4,096 over HTTP from 256 clients through the C++ front at
-           deadline_ms 10,000, and 1,024 from 256 at the front's 2,000 ms
-           default (its fail-open answers counted). Per load the webhook
+           DecisionLog, an SloEngine and a Tracer: 1,024 framed requests
+           of new pods from 256 callers over 16 connections
+           (WebhookServer(ingest=True), 10,000 ms budgets), then 1,024
+           over HTTP from 256 clients through the C++ front at
+           deadline_ms 10,000 (the function's defaults add 1,024 framed
+           from 16 callers and 1,024 through the front at its 2,000 ms
+           default, counting their fail-open answers). Per load the webhook
            phase's figures plus encode split by encoder, sheds by reason,
            the scheduler's predicted against measured batch seconds and the
            SloEngine's autoscaler(). No batch may fail or leave the fused
@@ -90,7 +93,7 @@ Phases, one line each on stdout, in this order:
            launch, and 64 sampled responses equal the interpreter's;
   partitions  the same client behind WebhookServer(partitions=4,
            integrity=IntegrityPlane(), attributor=CostAttributor()):
-           4,096 requests from 256 callers, every answer equal to the
+           1,024 requests from 256 callers, every answer equal to the
            monolithic dispatch's and 64 to the interpreter's, no canary
            mismatch, K1-K4 launched by every partition; per partition the
            launches and the attributed against the measured dispatch
@@ -99,8 +102,9 @@ Phases, one line each on stdout, in this order:
            driver.device_dispatch[device=1] (three failed dispatches, the
            breaker opens, partition 1 re-homes, later answers fused);
   audit_churn  the audit controller at full width across cluster churn:
-           the full phase's client, its last 20 constraints swapped for join
-           constraints; sweep 1 takes a full table upload, then 1,000 pods
+           the full phase's client, its last 8 constraints swapped for join
+           constraints (the function's default swaps 20; cut for time);
+           sweep 1 takes a full table upload, then 1,000 pods
            go and 1,000 new ones come with strings never interned, and
            sweep 2 must take the vocab-delta upload. Every kernel (K1-K6)
            must launch over the two sweeps, K5 in sweep 2; a sample of rows
@@ -108,7 +112,8 @@ Phases, one line each on stdout, in this order:
   inventory_parity  2,000 mixed-GVK rows (make_mixed: pods, Services,
            Ingresses, Namespaces) x 50 constraints plus the two uniqueness
            joins (UNIQUE_INGRESS_HOST_REGO, UNIQUE_SERVICE_SELECTOR_REGO):
-           whole audit() and review_many() result lists equal to the
+           whole audit() and review_many() result lists (2 review batches
+           of 64; cut for time from the default 4) equal to the
            interpreter driver's;
   inventory  BASELINE config #5 at full width (100,000 mixed-GVK rows x
            500 constraints, the two joins among them): one cold audit sweep
@@ -122,6 +127,34 @@ Phases, one line each on stdout, in this order:
            plain version, each compiled constraint without row features
            totalling its need pairs of the sweep (K4); entry()'s step once;
            the step's device time split into K1, K7 and program bodies;
+  runner   the process wiring at full width (BASELINE config #5):
+           build_runner(build_parser().parse_args(...)) against ApiServer,
+           an apiserver stand-in in its own process (paged lists, watch
+           streams, status writes) holding the 500 constraints, a Config
+           syncing Pods and the 100,000 pods of make_pod with images drawn
+           from a 5,000-image catalogue; --audit-from-cache, TLS, webhook,
+           audit, status. Boot to Ready and to the first sweep, whose
+           violations equal the full phase's; 20 ConstraintPodStatus CRs
+           and audit statuses against the full phase's Client.audit; 4,096
+           AdmissionReviews over HTTPS from 256 callers (no failed,
+           degraded or fail-policy answer, 64 against the interpreter);
+           1,000 pods out and 1,000 in through the stand-in and a sweep on
+           the vocab-delta upload (K5);
+  extdata  the same Runner: a localhost provider flagging 1% of the
+           catalogue, a Provider CR and an error-gated image-verification
+           template and constraint through the stand-in. One sweep makes
+           exactly one fetch and its violations equal the pods with a
+           flagged image; two HTTPS loads of 1,024 from 256 callers make
+           at most one fetch per micro-batch, the second (cached keys)
+           none; a cache-hit batch of 256 renders no pair of that kind on
+           the interpreter; past the TTL that batch refetches once and
+           the rows of images flagged meanwhile route back and violate;
+  process  python -m gatekeeper_tpu_torch.run as a child against a
+           stand-in with 1,000 pods x 50 constraints, in the process
+           defaults (discovery audit, --audit-chunk-size 512): /readyz
+           200, /metrics with the audit series, one HTTPS AdmissionReview
+           equal to the interpreter's, the device named in its log, exit
+           0 within the drain grace + 30 s of SIGTERM;
   kernels  each kernel against its plain torch version on inputs the main
            paths gave it (exact equality: every output is
            bool or int, K5's buffers compared byte for byte), with the
@@ -261,6 +294,9 @@ PATH_KERNELS = {
     "ingest": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "liveness": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "partitions": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "runner": ("match_matrix", "slab_gather", "egroup", "need_tail",
+               "flush_deltas"),
+    "extdata": ("match_matrix", "slab_gather", "egroup", "need_tail"),
 }
 
 # A two-array join in the shape of gatekeeper-library's
@@ -1136,7 +1172,11 @@ def phase_full(device: str, n_pods: int = 100_000, n_constraints: int = 500,
         ],
         "launches": launches, "sample_checked": len(sample),
     }, default=float), flush=True)
-    return rec, launches, client, drv
+    per_constraint = {}
+    for r in results:
+        k = f"{r.constraint['kind']}/{r.constraint['metadata']['name']}"
+        per_constraint[k] = per_constraint.get(k, 0) + 1
+    return rec, launches, client, drv, per_constraint
 
 
 def _audit_managers(clients, cluster=None, now=None):
@@ -2073,9 +2113,10 @@ def _envelope(req) -> bytes:
                        "kind": "AdmissionReview", "request": req}).encode()
 
 
-def _drive_http(port: int, posts, threads: int, timeout: float = 300.0):
+def _drive_http(port: int, posts, threads: int, timeout: float = 300.0,
+                ssl_ctx=None):
     """POST each (path, body) of `posts` from `threads` threads, each over
-    one keep-alive connection, all started together.
+    one keep-alive connection (HTTPS with `ssl_ctx`), all started together.
     -> (response bodies in order, latency seconds in order, wall seconds)."""
     import http.client
     import threading
@@ -2086,7 +2127,12 @@ def _drive_http(port: int, posts, threads: int, timeout: float = 300.0):
     start = threading.Barrier(threads + 1)
 
     def worker(k):
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+        if ssl_ctx is not None:
+            conn = http.client.HTTPSConnection(
+                "127.0.0.1", port, timeout=timeout, context=ssl_ctx)
+        else:
+            conn = http.client.HTTPConnection(
+                "127.0.0.1", port, timeout=timeout)
         try:
             start.wait()
             for i in range(k, len(posts), threads):
@@ -3833,6 +3879,1115 @@ def _size(name, args, out):
     return args[0].numel() if name == "full_totals" else out.numel()
 
 
+# -- the process entry: an apiserver stand-in, the Runner, external data ------
+
+IMAGE_CATALOGUE = 5000
+RUNNER_SEED = 20261017
+EXT_KIND = "K8sExternalImages"
+EXT_PROVIDER = "image-signatures"
+# error-gated image verification (tests/test_externaldata.py's idiom): the
+# analyzer proves it error-gated, so it compiles to the "err" screen
+EXT_REGO = """package k8sexternalimages
+
+violation[{"msg": msg}] {
+  images := [img | img := input.review.object.spec.containers[_].image]
+  response := external_data({"provider": "image-signatures", "keys": images})
+  count(response.errors) > 0
+  msg := sprintf("image verification failed: %v", [response.errors])
+}
+"""
+
+# (group, version, kind, plural, namespaced) the stand-in serves before any
+# constraint kind is registered
+API_KINDS = (
+    ("", "v1", "Pod", "pods", True),
+    ("", "v1", "Namespace", "namespaces", False),
+    ("", "v1", "Event", "events", True),
+    ("templates.gatekeeper.sh", "v1beta1", "ConstraintTemplate",
+     "constrainttemplates", False),
+    ("config.gatekeeper.sh", "v1alpha1", "Config", "configs", True),
+    ("externaldata.gatekeeper.sh", "v1alpha1", "Provider", "providers", False),
+    ("status.gatekeeper.sh", "v1beta1", "ConstraintPodStatus",
+     "constraintpodstatuses", True),
+    ("status.gatekeeper.sh", "v1beta1", "ConstraintTemplatePodStatus",
+     "constrainttemplatepodstatuses", True),
+    ("status.gatekeeper.sh", "v1beta1", "ProviderPodStatus",
+     "providerpodstatuses", True),
+    ("admissionregistration.k8s.io", "v1", "ValidatingWebhookConfiguration",
+     "validatingwebhookconfigurations", False),
+)
+
+
+def catalogue_image(k: int) -> str:
+    """Image k of the catalogue: a repo the in-repo templates allow
+    (nginx...), a pinned tag, never docker.io or :latest, so swapping
+    make_pod's nginx:1.25 for it changes no in-repo verdict."""
+    return f"nginx/img{k:04d}:v{k % 9 + 1}"
+
+
+def catalogue_pod(i: int, draws):
+    """make_pod(i) with every nginx:1.25 image replaced by catalogue image
+    draws[c] (container c)."""
+    pod = make_pod(i)
+    for c, ctr in enumerate(pod["spec"]["containers"]):
+        if ctr["image"] == "nginx:1.25":
+            ctr["image"] = catalogue_image(int(draws[c]))
+    return pod
+
+
+def _gvk_key(obj):
+    group, _, version = obj.get("apiVersion", "v1").rpartition("/")
+    return (group, version, obj["kind"])
+
+
+class ApiServer:
+    """A compact stand-in for the Kubernetes API server on 127.0.0.1
+    (stdlib HTTP), for the control plane's KubeCluster: discovery
+    (/api/v1, /apis, /apis/<group>/<version>), paged lists (limit and
+    continue), JSON-line watch streams from a resourceVersion with
+    bookmarks, GET of one object, and the create (POST, 409 when it
+    exists), replace (PUT, 409 on a stale resourceVersion) and DELETE
+    writes the status plane and Events use. Every write gets the next
+    resourceVersion and an event in its kind's log."""
+
+    def __init__(self, kinds=API_KINDS):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlparse
+
+        self._lock = threading.Lock()
+        self.rv = 0
+        self.paths = {}   # (group, version, plural) -> (kind, namespaced)
+        self.store = {}   # (group, version, kind) -> {(ns, name): obj}
+        self.log = {}     # (group, version, kind) -> [(rv, type, obj)]
+        self.requests = {}
+        self.closed = threading.Event()
+        for k in kinds:
+            self.register(*k)
+        api = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def send_json(self, code, doc):
+                payload = json.dumps(doc).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+
+            def body(self):
+                n = int(self.headers.get("Content-Length", 0))
+                return json.loads(self.rfile.read(n) or b"{}")
+
+            def do_GET(self):  # noqa: N802
+                u = urlparse(self.path)
+                api.handle_get(self, u.path, parse_qs(u.query))
+
+            def do_POST(self):  # noqa: N802
+                api.handle_write(self, "POST", urlparse(self.path).path)
+
+            def do_PUT(self):  # noqa: N802
+                api.handle_write(self, "PUT", urlparse(self.path).path)
+
+            def do_DELETE(self):  # noqa: N802
+                api.handle_delete(self, urlparse(self.path).path)
+
+        class Server(ThreadingHTTPServer):
+            daemon_threads = True
+            request_queue_size = 256
+
+        self.httpd = Server(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def close(self):
+        self.closed.set()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join(timeout=10)
+
+    def register(self, group, version, kind, plural, namespaced):
+        with self._lock:
+            self.paths[(group, version, plural)] = (kind, namespaced)
+            self.store.setdefault((group, version, kind), {})
+            self.log.setdefault((group, version, kind), [])
+
+    # -- the store ------------------------------------------------------------
+
+    def _commit(self, key, etype, obj):
+        """Under the lock: the next resourceVersion, stamped on a copy of
+        obj's metadata, and the event in the kind's log."""
+        self.rv += 1
+        obj = dict(obj, metadata=dict(obj.get("metadata") or {},
+                                      resourceVersion=str(self.rv)))
+        self.log[key].append((self.rv, etype, obj))
+        return obj
+
+    def put(self, obj):
+        key = _gvk_key(obj)
+        meta = obj.get("metadata") or {}
+        okey = (meta.get("namespace") or "", meta["name"])
+        with self._lock:
+            objs = self.store[key]
+            stamped = self._commit(
+                key, "MODIFIED" if okey in objs else "ADDED", obj)
+            objs[okey] = stamped
+        return stamped
+
+    def remove(self, obj):
+        key = _gvk_key(obj)
+        meta = obj.get("metadata") or {}
+        okey = (meta.get("namespace") or "", meta["name"])
+        with self._lock:
+            gone = self.store[key].pop(okey, None)
+            if gone is not None:
+                self._commit(key, "DELETED", gone)
+        return gone is not None
+
+    def objects(self, group, version, kind):
+        with self._lock:
+            return list(self.store[(group, version, kind)].values())
+
+    def _resolve(self, path):
+        """-> ((group, version, kind), namespaced, ns, name) or None."""
+        parts = [p for p in path.split("/") if p]
+        if len(parts) >= 2 and parts[0] == "api":
+            group, rest = "", parts[1:]
+        elif len(parts) >= 3 and parts[0] == "apis":
+            group, rest = parts[1], parts[2:]
+        else:
+            return None
+        version, rest = rest[0], rest[1:]
+        ns = ""
+        if len(rest) >= 3 and rest[0] == "namespaces":
+            ns, rest = rest[1], rest[2:]
+        if not rest:
+            return None
+        hit = self.paths.get((group, version, rest[0]))
+        if hit is None:
+            return None
+        kind, namespaced = hit
+        return ((group, version, kind), namespaced, ns,
+                rest[1] if len(rest) > 1 else "")
+
+    # -- HTTP -----------------------------------------------------------------
+
+    def _count(self, what):
+        with self._lock:
+            self.requests[what] = self.requests.get(what, 0) + 1
+
+    def handle_get(self, h, path, q):
+        parts = [p for p in path.split("/") if p]
+        if parts == ["apis"]:
+            with self._lock:
+                groups = sorted({(g, v) for g, v, _ in self.paths if g})
+            return h.send_json(200, {"groups": [
+                {"name": g, "preferredVersion": {"groupVersion": f"{g}/{v}"}}
+                for g, v in groups]})
+        if parts == ["api", "v1"] or (len(parts) == 3 and parts[0] == "apis"):
+            group, version = ("", "v1") if parts[0] == "api" else parts[1:]
+            with self._lock:
+                res = [{"name": plural, "kind": kind, "namespaced": nsd,
+                        "verbs": ["get", "list", "watch", "create", "update",
+                                  "delete"]}
+                       for (g, v, plural), (kind, nsd) in self.paths.items()
+                       if (g, v) == (group, version)]
+            if not res:
+                return h.send_json(404, {"message": "no such groupVersion"})
+            return h.send_json(200, {"resources": res})
+        hit = self._resolve(path)
+        if hit is None:
+            return h.send_json(404, {"message": f"unknown path {path}"})
+        key, _nsd, ns, name = hit
+        if name:
+            with self._lock:
+                obj = self.store[key].get((ns, name))
+            if obj is None:
+                return h.send_json(404, {"message": "not found"})
+            return h.send_json(200, obj)
+        if q.get("watch"):
+            self._count(f"watch {key[2]}")
+            return self._watch(h, key, q)
+        self._count(f"list {key[2]}")
+        limit = int(q.get("limit", ["0"])[0] or 0)
+        start = int(q.get("continue", ["0"])[0] or 0)
+        with self._lock:
+            items = [o for (ons, _), o in self.store[key].items()
+                     if not ns or ons == ns]
+            meta = {"resourceVersion": str(self.rv)}
+        end = start + limit if limit else len(items)
+        if end < len(items):
+            meta["continue"] = str(end)
+        h.send_json(200, {"items": items[start:end], "metadata": meta})
+
+    def _watch(self, h, key, q):
+        import bisect
+
+        since = int(q.get("resourceVersion", ["0"])[0] or 0)
+        bookmarks = q.get("allowWatchBookmarks", [""])[0] == "true"
+        deadline = time.monotonic() + min(
+            float(q.get("timeoutSeconds", ["30"])[0]), 30.0)
+        h.send_response(200)
+        h.send_header("Content-Type", "application/json")
+        h.send_header("Connection", "close")
+        h.end_headers()
+        log = self.log[key]
+        with self._lock:
+            i = bisect.bisect_right([e[0] for e in log], since)
+        next_mark = time.monotonic() + 1.0
+        try:
+            while time.monotonic() < deadline and not self.closed.is_set():
+                with self._lock:
+                    fresh, head = log[i:], self.rv
+                i += len(fresh)
+                out = b"".join(
+                    json.dumps({"type": t, "object": o}).encode() + b"\n"
+                    for _, t, o in fresh)
+                if bookmarks and time.monotonic() >= next_mark:
+                    next_mark = time.monotonic() + 1.0
+                    out += json.dumps({"type": "BOOKMARK", "object": {
+                        "kind": key[2],
+                        "metadata": {"resourceVersion": str(head)}}}
+                    ).encode() + b"\n"
+                if out:
+                    h.wfile.write(out)
+                    h.wfile.flush()
+                time.sleep(0.05)
+        except OSError:
+            pass
+        h.close_connection = True
+
+    def handle_write(self, h, method, path):
+        hit = self._resolve(path)
+        if hit is None:
+            return h.send_json(404, {"message": "unknown path"})
+        key, nsd, ns, name = hit
+        obj = h.body()
+        meta = obj.get("metadata") or {}
+        okey = ((ns or meta.get("namespace") or "") if nsd else "",
+                name or meta.get("name", ""))
+        obj["apiVersion"] = f"{key[0]}/{key[1]}" if key[0] else key[1]
+        obj["kind"] = key[2]
+        with self._lock:
+            cur = self.store[key].get(okey)
+            if method == "POST" and cur is not None:
+                conflict = "already exists"
+            elif method == "PUT" and cur is not None and (
+                    meta.get("resourceVersion")
+                    != cur["metadata"]["resourceVersion"]):
+                conflict = "stale resourceVersion"
+            else:
+                conflict = None
+                stamped = self._commit(
+                    key, "ADDED" if cur is None else "MODIFIED", obj)
+                self.store[key][okey] = stamped
+        if conflict:
+            return h.send_json(409, {"message": conflict})
+        h.send_json(201 if method == "POST" else 200, stamped)
+
+    def handle_delete(self, h, path):
+        hit = self._resolve(path)
+        if hit is None:
+            return h.send_json(404, {"message": "unknown path"})
+        key, _nsd, ns, name = hit
+        with self._lock:
+            gone = self.store[key].pop((ns, name), None)
+            if gone is not None:
+                self._commit(key, "DELETED", gone)
+        if gone is None:
+            return h.send_json(404, {"message": "not found"})
+        h.send_json(200, {"status": "Success"})
+
+
+def _register_constraint_kinds(api, kinds):
+    for kind in kinds:
+        api.register("constraints.gatekeeper.sh", "v1beta1", kind,
+                     kind.lower() + "s", False)
+
+
+def sync_pods_config():
+    return {
+        "apiVersion": "config.gatekeeper.sh/v1alpha1",
+        "kind": "Config",
+        "metadata": {"name": "config", "namespace": "gatekeeper-system"},
+        "spec": {"sync": {"syncOnly": [
+            {"group": "", "version": "v1", "kind": "Pod"}]}},
+    }
+
+
+def seed_api(api, n_pods: int, n_constraints: int, draws=None):
+    """The smoke's policy (template_docs, constraint_docs(n_constraints)),
+    a Config that syncs Pods, the 23 namespaces make_pod uses and n_pods
+    pods (catalogue_pod with `draws`, else make_pod)."""
+    templates = template_docs()
+    _register_constraint_kinds(
+        api, [t["spec"]["crd"]["spec"]["names"]["kind"] for t in templates])
+    for t in templates:
+        api.put(t)
+    for c in constraint_docs(n_constraints):
+        api.put(c)
+    api.put(sync_pods_config())
+    for k in range(23):
+        api.put({"apiVersion": "v1", "kind": "Namespace",
+                 "metadata": {"name": f"ns{k}"}})
+    for i in range(n_pods):
+        api.put(catalogue_pod(i, draws[i]) if draws is not None
+                else make_pod(i))
+
+
+def _api_child(conn, n_pods: int, n_constraints: int, catalogue: bool):
+    """The ApiServer's process: seed it (catalogue pods drawn with
+    RUNNER_SEED when `catalogue`), send its URL, then serve the parent's
+    commands over `conn` until "close"."""
+    import numpy as np
+
+    api = ApiServer()
+    draws = (np.random.default_rng(RUNNER_SEED).integers(
+        0, IMAGE_CATALOGUE, size=(n_pods, 16)) if catalogue else None)
+    seed_api(api, n_pods, n_constraints, draws)
+    conn.send(api.url)
+    while True:
+        op, args = conn.recv()
+        if op == "close":
+            api.close()
+            conn.send(None)
+            return
+        try:
+            if op == "pods_with_image":
+                out = sum(any(c["image"] in args[0]
+                              for c in p["spec"]["containers"])
+                          for p in api.objects("", "v1", "Pod"))
+            elif op == "images":
+                out = sorted({c["image"] for p in api.objects("", "v1", "Pod")
+                              for c in p["spec"]["containers"]})
+            elif op == "requests":
+                out = dict(api.requests)
+            else:
+                out = getattr(api, op)(*args)
+            conn.send(("ok", out))
+        except Exception as e:  # the parent raises it
+            conn.send(("error", repr(e)))
+
+
+class ApiProcess:
+    """An ApiServer in a process of its own, as a real apiserver is: its
+    store, JSON encoding and HTTP threads stay out of the serving
+    process's interpreter and heap. Seeded by seed_api; put, remove,
+    objects and register run there over a pipe; pods_with_image(images)
+    and images() answer from its pods."""
+
+    def __init__(self, n_pods: int, n_constraints: int,
+                 catalogue: bool = False):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(
+            target=_api_child, args=(child, n_pods, n_constraints, catalogue),
+            daemon=True)
+        self._proc.start()
+        self._url = None
+
+    @property
+    def url(self) -> str:
+        """The server's URL, once the process has seeded it."""
+        if self._url is None:
+            deadline = time.monotonic() + 600
+            while not self._conn.poll(1.0):
+                if not self._proc.is_alive() or time.monotonic() > deadline:
+                    self._proc.kill()
+                    raise AssertionError(
+                        f"apiserver: no URL (exit {self._proc.exitcode})")
+            self._url = self._conn.recv()
+        return self._url
+
+    def _call(self, op, *args):
+        self.url  # seeded first
+        self._conn.send((op, args))
+        status, out = self._conn.recv()
+        if status != "ok":
+            raise AssertionError(f"apiserver: {op}: {out}")
+        return out
+
+    def put(self, obj):
+        return self._call("put", obj)
+
+    def remove(self, obj):
+        return self._call("remove", obj)
+
+    def objects(self, group, version, kind):
+        return self._call("objects", group, version, kind)
+
+    def register(self, *kind):
+        return self._call("register", *kind)
+
+    def pods_with_image(self, images) -> int:
+        return self._call("pods_with_image", set(images))
+
+    def images(self):
+        return self._call("images")
+
+    def requests(self):
+        return self._call("requests")
+
+    def close(self):
+        if self._proc.is_alive():
+            try:
+                self._conn.send(("close", ()))
+                self._conn.poll(30) and self._conn.recv()
+            except OSError:
+                pass
+            self._proc.join(timeout=30)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join(timeout=10)
+
+
+def _https_context(rotator):
+    import ssl
+
+    return ssl.create_default_context(cafile=rotator.ca_path)
+
+
+def _wait_for(pred, timeout: float, what: str, step: float = 0.1):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(step)
+    if not pred():
+        raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+
+
+def phase_runner(rec, full_counts, n_pods: int = 100_000,
+                 n_constraints: int = 500, n_requests: int = 4096,
+                 callers: int = 256, n_sample: int = 64, n_status: int = 20,
+                 n_churn: int = 1000, api=None, device=None):
+    """The process wiring at full width: an ApiServer holding the smoke's
+    policy, a Config that syncs Pods and n_pods pods whose images come
+    from the 5,000-image catalogue; build_runner(build_parser()
+    .parse_args(...)) with --audit-from-cache, TLS in a temp --cert-dir,
+    webhook, audit and status. Boot to Ready and to the first sweep;
+    the sweep's violations must equal the full phase's Client.audit
+    results on the same pods (`full_counts`, per constraint; the
+    catalogue changes no verdict), in total and for n_status sampled
+    constraints, whose ConstraintPodStatus CRs the ApiServer holds;
+    n_churn pods out and n_churn in through the ApiServer and a second
+    sweep on the vocab-delta upload (K5); then HTTPS load (n_requests from
+    `callers`), no failed, degraded or fail-policy answer, n_sample
+    answers against the interpreter. `api`: an ApiProcess already seeded
+    with these pods and constraints (main starts it early, so its seeding
+    overlaps earlier phases); `device` goes to build_runner (None: the
+    card; a CPU rehearsal passes "cpu"). -> (launches, state for
+    phase_extdata)."""
+    import tempfile
+
+    from gatekeeper_tpu_torch import run as runmod
+    from gatekeeper_tpu_torch.kernels import ops
+    from gatekeeper_tpu_torch.logs import StructuredLogger
+
+    t0 = time.perf_counter()
+    if api is None:
+        api = ApiProcess(n_pods, n_constraints, catalogue=True)
+    api.url  # seeded
+    seed_s = time.perf_counter() - t0
+    _step("runner", "apiserver seeded", t0)
+    work = tempfile.mkdtemp(prefix="gk-smoke-runner-")
+    args = runmod.build_parser().parse_args([
+        "--kube-url", api.url, "--port", "0", "--health-addr-port", "0",
+        "--audit-from-cache", "--audit-interval", "3600",
+        "--cert-dir", os.path.join(work, "certs"), "--log-level", "error",
+    ])
+    rec.install()
+    ops.reset_launches()
+    t_boot = time.perf_counter()
+    # the Runner's log goes to a file: a failing phase prints its tail
+    log_file = open(os.path.join(work, "runner.log"), "w")
+    cluster, runner = runmod.build_runner(
+        args, log=StructuredLogger(level="error", stream=log_file),
+        device=device)
+    state = {"api": api, "cluster": cluster, "runner": runner,
+             "log": log_file}
+    try:
+        client, drv = runner.client, runner.client._driver
+        runner.start()
+        if not runner.wait_ready(900):
+            raise AssertionError(
+                f"runner: not Ready: {runner.tracker.stats()}")
+        ready_s = time.perf_counter() - t_boot
+        _step("runner", "ready", t_boot)
+        if not runner.wait_ready(900, warm=True):
+            raise AssertionError("runner: the first audit sweep never ran")
+        warm_s = time.perf_counter() - t_boot
+        _step("runner", "first sweep", t_boot)
+        sweep = {"seconds": runner.audit.audit_duration_seconds,
+                 "phase_seconds": dict(drv.stats.get("phase_seconds", {})),
+                 "upload": _upload(drv.stats)}
+        report = runner.audit.sink.latest
+        if report.total_violations != sum(full_counts.values()):
+            raise AssertionError(
+                f"runner: sweep found {report.total_violations} violations, "
+                f"the full phase {sum(full_counts.values())}")
+        # status: the Runner's ConstraintPodStatus CRs, and its audit
+        # statuses against the full phase's Client.audit
+        per = full_counts
+        keys = sorted(report.statuses)
+        sample_keys = keys[:: max(1, len(keys) // n_status)][:n_status]
+        crs = {(o.get("status") or {}).get("constraintUID"): o["status"]
+               for o in api.objects("status.gatekeeper.sh", "v1beta1",
+                                    "ConstraintPodStatus")}
+        for k in sample_keys:
+            st = crs.get(k)
+            if st is None or st["enforced"] is not True or st["errors"]:
+                raise AssertionError(f"runner: status CR of {k}: {st}")
+            if report.statuses[k].total_violations != per.get(k, 0):
+                raise AssertionError(
+                    f"runner: {k} audited {report.statuses[k].total_violations}"
+                    f" violations, Client.audit {per.get(k, 0)}")
+        _step("runner", "statuses checked", t_boot)
+        # churn through the apiserver, then a sweep on the delta upload
+        g0 = drv._data_gen
+        for i in range(n_churn):
+            api.remove(make_pod(i))
+            api.put(churn_pod(i))
+        _wait_for(lambda: drv._data_gen >= g0 + 2 * n_churn, 300,
+                  "the churn to sync")
+        t_c = time.perf_counter()
+        _step("runner", "churn synced", t_boot)
+        churn_report = runner.audit.audit()
+        churn = {"seconds": time.perf_counter() - t_c,
+                 "phase_seconds": dict(drv.stats.get("phase_seconds", {})),
+                 "upload": _upload(drv.stats),
+                 "violations": churn_report.total_violations}
+        if not churn["upload"].get("delta_flushes"):
+            raise AssertionError(
+                f"runner: the churn sweep took no delta upload: "
+                f"{churn['upload']}")
+        _step("runner", "churn swept", t_boot)
+        # HTTPS admission from `callers` clients
+        posts, requests = webhook_posts(7, n_requests)
+        b0 = runner.webhook.batcher.batches_dispatched
+        pauses = GcPauses()
+        try:
+            bodies, lat, wall = _drive_http(
+                runner.webhook.port, posts, callers,
+                ssl_ctx=_https_context(runner.webhook.rotator))
+        finally:
+            gc_https = pauses.close()
+        batches = runner.webhook.batcher.batches_dispatched - b0
+        _step("runner", "https load", t_boot)
+        _check_served("runner", runner.webhook, runner.metrics, client,
+                      requests)
+        unavailable = sum(_unavailable(b) for b in bodies)
+        if unavailable:
+            raise AssertionError(
+                f"runner: {unavailable} of {n_requests} answers were the "
+                f"fail policy's (p50 {_quantile(lat, 0.5):.3f} s, p99 "
+                f"{_quantile(lat, 0.99):.3f} s, max {max(lat):.3f} s, "
+                f"{batches} batches, full collections {gc_https})")
+        oracle = _oracle(client)
+        step = max(1, n_requests // n_sample)
+        t_s = time.perf_counter()
+        for i in range(0, n_requests, step):
+            if _response_fields(bodies[i]) != _expected_response(
+                    oracle, requests[i]):
+                raise AssertionError(
+                    f"runner: response to {requests[i]['uid']} differs from "
+                    "the interpreter")
+        sample_s = time.perf_counter() - t_s
+        launches = dict(ops.LAUNCHES)
+    except BaseException:
+        _stop_runner(state)
+        _print_tail(os.path.join(work, "runner.log"))
+        raise
+    finally:
+        rec.remove()
+    missing = [k for k in PATH_KERNELS["runner"] if launches[k] <= 0]
+    if missing and drv.device.type == "cuda":
+        raise AssertionError(f"runner: kernels never launched: {missing}")
+    print(json.dumps({
+        "phase": "runner", "pods": n_pods, "constraints": n_constraints,
+        "images": IMAGE_CATALOGUE, "seed_seconds": seed_s,
+        "boot_to_ready_s": ready_s, "boot_to_first_sweep_s": warm_s,
+        "first_sweep": sweep, "violations": report.total_violations,
+        "status_checked": len(sample_keys),
+        "https": {"requests": n_requests, "callers": callers,
+                  "wall_s": wall, "rps": n_requests / wall,
+                  "p50_s": _quantile(lat, 0.5), "p99_s": _quantile(lat, 0.99),
+                  "max_s": max(lat), "batches": batches,
+                  "gc_full_collections": gc_https,
+                  "sample_checked": len(range(0, n_requests, step)),
+                  "sample_seconds": sample_s},
+        "churn": churn, "launches": launches,
+        "apiserver_requests": api.requests(),
+        "seconds": time.perf_counter() - t0,
+    }, default=float), flush=True)
+    return launches, state
+
+
+class GcPauses:
+    """Wall seconds of each full (generation 2) CPython collection while
+    installed: the stalls a request waits through beside its batch."""
+
+    def __init__(self):
+        import gc
+
+        self._gc = gc
+        self.pauses = []
+        self._t = None
+        gc.callbacks.append(self._cb)
+
+    def _cb(self, phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.pauses.append(time.perf_counter() - self._t)
+            self._t = None
+
+    def close(self):
+        self._gc.callbacks.remove(self._cb)
+        return {"count": len(self.pauses), "sum_s": sum(self.pauses),
+                "max_s": max(self.pauses, default=0.0)}
+
+
+def _step(phase: str, step: str, since: float) -> None:
+    """A progress line: a long phase that fails still shows how far it
+    came and when."""
+    print(json.dumps({"phase": phase, "step": step,
+                      "seconds": time.perf_counter() - since}), flush=True)
+
+
+def _print_tail(path: str, n: int = 20) -> None:
+    try:
+        with open(path) as f:
+            lines = f.readlines()
+    except OSError:
+        return
+    sys.stderr.write("".join(lines[-n:]))
+
+
+def _stop_runner(state):
+    runner = state.get("runner")
+    if runner is not None:
+        runner.stop()
+    if state.get("cluster") is not None:
+        state["cluster"].stop()
+    if state.get("api") is not None:
+        state["api"].close()
+    if state.get("log") is not None:
+        state["log"].close()
+
+
+class StubProvider:
+    """A localhost external-data provider (stdlib HTTP) speaking the
+    ProviderRequest/ProviderResponse protocol: keys in `flagged` get an
+    error entry, others a value; `requests` keeps each fetch's keys."""
+
+    def __init__(self, flagged):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.flagged = set(flagged)
+        self.requests = []
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):  # noqa: N802
+                n = int(self.headers.get("Content-Length", 0))
+                keys = (json.loads(self.rfile.read(n)).get("request") or {}
+                        ).get("keys") or []
+                stub.requests.append(list(keys))
+                items = [{"key": k, "error": "signature not found"}
+                         if k in stub.flagged else {"key": k, "value": "ok"}
+                         for k in keys]
+                payload = json.dumps({
+                    "apiVersion": "externaldata.gatekeeper.sh/v1alpha1",
+                    "kind": "ProviderResponse",
+                    "response": {"items": items, "systemError": ""},
+                }).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/verify"
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join(timeout=10)
+
+
+class FetchLog:
+    """Wraps an ExternalDataSystem's fetcher: the thread and key count of
+    every outbound fetch, so a count can leave out the integrity plane's
+    shadow oracle, which re-checks sampled answers on its own thread."""
+
+    def __init__(self, system):
+        self.inner = system.fetcher
+        self.calls = []
+        system.fetcher = self
+
+    def fetch(self, provider, keys):
+        import threading
+
+        self.calls.append((threading.current_thread().name, len(keys)))
+        return self.inner.fetch(provider, keys)
+
+    def since(self, n0: int):
+        """Fetches after the first n0, the shadow oracle's left out."""
+        return [k for name, k in self.calls[n0:] if name != "integrity-shadow"]
+
+
+def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
+                  batch: int = 256, flag_share: float = 0.01):
+    """External data on the runner phase's Runner: a localhost StubProvider
+    that flags flag_share of the 5,000 catalogue images; a Provider CR and
+    an error-gated image-verification template and constraint applied
+    through the ApiServer (ProviderController, TemplateController). One
+    sweep makes exactly one fetch, its violations equal the pods with a
+    flagged image; two loads of n_requests AdmissionReviews over HTTPS
+    from `callers` clients, micro-batched by the webhook, make at most one
+    fetch per batch, the second (only images the sweep fetched) none; a
+    review_many of `batch` clean pods renders no pair of the
+    external-data kind on the interpreter; the provider then flags some of
+    its images: inside the TTL the batch still passes without a fetch,
+    past it the batch refetches once and its rows with those images route
+    back to the interpreter and violate. -> launches."""
+    import numpy as np
+
+    from gatekeeper_tpu_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    api, runner = state["api"], state["runner"]
+    client, drv = runner.client, runner.client._driver
+    rng = np.random.default_rng(RUNNER_SEED + 1)
+    flagged = {catalogue_image(int(k)) for k in rng.choice(
+        IMAGE_CATALOGUE, int(IMAGE_CATALOGUE * flag_share), replace=False)}
+    stub = StubProvider(flagged)
+    fetches = FetchLog(runner.external_data)
+    rec.install()
+    try:
+        ops.reset_launches()
+        _register_constraint_kinds(api, [EXT_KIND])
+        api.put({"apiVersion": "externaldata.gatekeeper.sh/v1alpha1",
+                 "kind": "Provider", "metadata": {"name": EXT_PROVIDER},
+                 "spec": {"url": stub.url, "timeout": 30,
+                          "failurePolicy": "Fail", "cacheTTLSeconds": 600,
+                          "negativeCacheTTLSeconds": 600,
+                          # one request carries a sweep's every key
+                          "maxKeysPerRequest": 16384}})
+        api.put({"apiVersion": "templates.gatekeeper.sh/v1beta1",
+                 "kind": "ConstraintTemplate",
+                 "metadata": {"name": EXT_KIND.lower()},
+                 "spec": {"crd": {"spec": {"names": {"kind": EXT_KIND}}},
+                          "targets": [{"target": TARGET, "rego": EXT_REGO}]}})
+        api.put({"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+                 "kind": EXT_KIND, "metadata": {"name": "verify-images"},
+                 "spec": {"match": {"kinds": [
+                     {"apiGroups": [""], "kinds": ["Pod"]}]}}})
+        _wait_for(lambda: runner.external_data.get(EXT_PROVIDER) is not None
+                  and any(c.get("kind") == EXT_KIND
+                          for c in drv._constraints(TARGET)),
+                  120, "the provider and constraint to ingest")
+        want = api.pods_with_image(flagged)
+        key = f"{EXT_KIND}/verify-images"
+        feature = f"extdata:{EXT_KIND}:err"
+
+        def sweep():
+            f0 = len(fetches.calls)
+            t = time.perf_counter()
+            rep = runner.audit.audit()
+            made = fetches.since(f0)
+            return {"seconds": time.perf_counter() - t,
+                    "phase_seconds": dict(drv.stats.get("phase_seconds", {})),
+                    "fetches": len(made), "keys": sum(made),
+                    "violations": rep.statuses[key].total_violations
+                    if key in rep.statuses else 0,
+                    "interp_rendered_pairs": drv.stats["interp_rendered_pairs"]}
+
+        first = sweep()
+        # the screen's bits from the live cache (no fetch: keys cached)
+        f0 = len(fetches.calls)
+        flagged_rows = int(np.asarray(drv._extdata_row_bits(
+            TARGET, drv._corpus[TARGET], feature)).sum())
+        if fetches.since(f0):
+            raise AssertionError("extdata: the bits of a warm sweep fetched")
+        if first["fetches"] != 1 or first["violations"] != want:
+            raise AssertionError(
+                f"extdata: sweep made {first['fetches']} fetches and "
+                f"{first['violations']} violations, want 1 and {want}")
+        # micro-batches over HTTPS, two loads from `callers` clients:
+        # the first also carries images the provider never saw, the
+        # second only images the sweep fetched
+        seen = api.images()
+        ctx = _https_context(runner.webhook.rotator)
+        rounds = []
+        for b in range(2):
+            posts, reqs = [], []
+            for j in range(n_requests):
+                pod = make_pod(3_000_000 + b * n_requests + j,
+                               name=f"ext-{b}-{j}")
+                for c, ctr in enumerate(pod["spec"]["containers"]):
+                    ctr["image"] = seen[int(rng.integers(len(seen)))]
+                if b == 0 and j % 8 == 0:
+                    pod["spec"]["containers"][0]["image"] = (
+                        f"nginx/novel{b}x{j}:v1")
+                req = admission_request(pod, f"ext-{b}-{j}")
+                reqs.append(req)
+                posts.append(("/v1/admit", _envelope(req)))
+            f0 = len(fetches.calls)
+            b0 = runner.webhook.batcher.batches_dispatched
+            bodies, lat, wall = _drive_http(runner.webhook.port, posts,
+                                            callers, ssl_ctx=ctx)
+            made = len(fetches.since(f0))
+            batches = runner.webhook.batcher.batches_dispatched - b0
+            if any(_unavailable(body) for body in bodies):
+                raise AssertionError(
+                    f"extdata: load {b}: fail-policy answers")
+            denied = sum(not body["response"]["allowed"] for body in bodies)
+            want_denied = sum(
+                any(c["image"] in flagged
+                    for c in r["object"]["spec"]["containers"])
+                for r in reqs)
+            rounds.append({"requests": n_requests, "callers": callers,
+                           "batches": batches, "fetches": made,
+                           "denied": denied, "p50_s": _quantile(lat, 0.5),
+                           "p99_s": _quantile(lat, 0.99), "wall_s": wall})
+            if made > batches or (b == 1 and made):
+                raise AssertionError(f"extdata: load {b}: {rounds[-1]}")
+            if denied < want_denied:
+                raise AssertionError(
+                    f"extdata: load {b} denied {denied} of {want_denied} "
+                    "requests with a flagged image")
+        _check_served("extdata", runner.webhook, runner.metrics, client, [])
+        # a fully cache-hit batch: no interpreter pair of the kind
+        clean = sorted(set(seen) - flagged)
+        objs = []
+        from gatekeeper_tpu_torch.constraint import AugmentedUnstructured
+
+        for j in range(batch):
+            pod = make_pod(4_000_000 + j, name=f"clean-{j}")
+            for c, ctr in enumerate(pod["spec"]["containers"]):
+                ctr["image"] = clean[(j * 16 + c) % len(clean)]
+            objs.append(AugmentedUnstructured(pod))
+        by_kind = {}
+        render = drv._eval_template
+        import threading
+
+        me = threading.get_ident()
+
+        def counted(target, constraint, *a, **kw):
+            # this batch's renders only: the integrity plane's shadow
+            # oracle re-checks earlier requests on its own thread
+            if threading.get_ident() == me:
+                kind = constraint["kind"]
+                by_kind[kind] = by_kind.get(kind, 0) + 1
+            return render(target, constraint, *a, **kw)
+
+        f0 = len(fetches.calls)
+        drv._eval_template = counted
+        try:
+            out = client.review_many(objs)
+        finally:
+            del drv._eval_template
+        cache_hit = {"fetches": len(fetches.since(f0)),
+                     "interp_pairs_by_kind": by_kind,
+                     "ext_results": sum(
+                         r.constraint["kind"] == EXT_KIND
+                         for o in out for r in o.by_target[TARGET].results)}
+        if cache_hit["fetches"] or by_kind.get(EXT_KIND) or \
+                cache_hit["ext_results"]:
+            raise AssertionError(f"extdata: cache-hit batch: {cache_hit}")
+        # TTL: the provider flags images the batch above carried clean;
+        # inside the TTL the cache keeps answering clean, past it the
+        # batch refetches, and only row bits computed from the live cache
+        # (never cached on the corpus or the card) send those rows to the
+        # interpreter's re-check
+        carried = sorted({ctr["image"] for o in objs
+                          for ctr in o.object["spec"]["containers"]})
+        more = set(carried[::7])
+        stub.flagged |= more
+
+        def ext_denied(out):
+            return sum(any(r.constraint["kind"] == EXT_KIND
+                           for r in o.by_target[TARGET].results) for o in out)
+
+        f0 = len(fetches.calls)
+        inside = ext_denied(client.review_many(objs))
+        inside_fetches = len(fetches.since(f0))
+        cache = runner.external_data.cache
+        clock = cache._clock
+        cache._clock = lambda: clock() + 3600.0
+        try:
+            f0 = len(fetches.calls)
+            after = ext_denied(client.review_many(objs))
+            after_fetches = fetches.since(f0)
+        finally:
+            cache._clock = clock
+        want2 = sum(any(ctr["image"] in more
+                        for ctr in o.object["spec"]["containers"])
+                    for o in objs)
+        ttl = {"newly_flagged_images": len(more), "inside_ttl": inside,
+               "inside_fetches": inside_fetches, "past_ttl": after,
+               "past_fetches": len(after_fetches),
+               "past_keys": sum(after_fetches), "want": want2}
+        if inside or inside_fetches or len(after_fetches) != 1 or \
+                after != want2 or not want2:
+            raise AssertionError(f"extdata: TTL: {ttl}")
+        launches = dict(ops.LAUNCHES)
+    finally:
+        rec.remove()
+        stub.close()
+    missing = [k for k in PATH_KERNELS["extdata"] if launches[k] <= 0]
+    if missing and drv.device.type == "cuda":
+        raise AssertionError(f"extdata: kernels never launched: {missing}")
+    print(json.dumps({
+        "phase": "extdata", "images": IMAGE_CATALOGUE,
+        "flagged_images": len(flagged), "pods_flagged": want,
+        "first_sweep": first, "screen_flagged_rows": flagged_rows,
+        "micro_batches": rounds, "cache_hit_batch": cache_hit,
+        "ttl": ttl,
+        "shadow_fetches": sum(name == "integrity-shadow"
+                              for name, _ in fetches.calls),
+        "provider_requests": len(stub.requests),
+        "launches": launches, "seconds": time.perf_counter() - t0,
+    }, default=float), flush=True)
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http_get(url: str, timeout: float = 10.0):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+    except OSError:
+        return None, ""
+
+
+def phase_process(n_pods: int = 1000, n_constraints: int = 50,
+                  drain_grace: float = 1.0,
+                  entry=("-m", "gatekeeper_tpu_torch.run"), device="cuda"):
+    """`python -m gatekeeper_tpu_torch.run` as a child process against an
+    ApiServer with n_pods pods x n_constraints constraints, in the
+    process defaults (discovery-mode audit, --audit-chunk-size 512): its
+    /readyz answers 200, its /metrics serves the audit series, one HTTPS
+    AdmissionReview equals the interpreter's answer, its log names the
+    CUDA device, and SIGTERM ends it with exit 0 within the drain grace
+    plus 30 s. `entry` and `device` let a CPU rehearsal start a wrapper
+    that builds the driver on the CPU."""
+    import signal
+    import tempfile
+
+    from gatekeeper_tpu_torch.constraint import RegoDriver
+
+    t0 = time.perf_counter()
+    api = ApiProcess(n_pods, n_constraints)
+    ports = {k: _free_port() for k in ("webhook", "health", "metrics")}
+    work = tempfile.mkdtemp(prefix="gk-smoke-process-")
+    log_path = os.path.join(work, "run.log")
+    cmd = [sys.executable, *entry,
+           "--kube-url", api.url, "--port", str(ports["webhook"]),
+           "--health-addr-port", str(ports["health"]),
+           "--prometheus-port", str(ports["metrics"]),
+           "--cert-dir", os.path.join(work, "certs"),
+           "--audit-chunk-size", "512", "--drain-grace", str(drain_grace),
+           "--pod-name", "smoke-process"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                 stderr=subprocess.STDOUT)
+    try:
+        health = f"http://127.0.0.1:{ports['health']}"
+        _wait_for(lambda: child.poll() is not None
+                  or _http_get(f"{health}/readyz")[0] == 200, 600,
+                  "the child's /readyz", step=0.5)
+        if child.poll() is not None:
+            raise AssertionError(f"process: exited {child.returncode}")
+        ready_s = time.perf_counter() - t0
+        metrics = f"http://127.0.0.1:{ports['metrics']}/metrics"
+        _wait_for(lambda: "gatekeeper_audit_last_run_time" in
+                  _http_get(metrics)[1], 600, "the child's first audit",
+                  step=0.5)
+        text = _http_get(metrics)[1]
+        series = sorted({ln.split("{")[0].split(" ")[0]
+                         for ln in text.splitlines()
+                         if ln.startswith("gatekeeper_audit")
+                         or ln.startswith("gatekeeper_violations")})
+        violations = [ln for ln in text.splitlines()
+                      if ln.startswith("gatekeeper_violations")]
+        # one HTTPS AdmissionReview, verified against the child's CA
+        import ssl
+
+        ctx = ssl.create_default_context(
+            cafile=os.path.join(work, "certs", "ca.crt"))
+        pod = make_pod(503, name="process-admit")
+        req = admission_request(pod, "process-1")
+        (body,), _lat, _wall = _drive_http(
+            ports["webhook"], [("/v1/admit", _envelope(req))], 1,
+            ssl_ctx=ctx)
+        oracle = build_client(RegoDriver(), 0, n_constraints)
+        if _response_fields(body) != _expected_response(oracle, req):
+            raise AssertionError(
+                f"process: answer {body} differs from the interpreter")
+        t_term = time.perf_counter()
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=drain_grace + 30)
+        term_s = time.perf_counter() - t_term
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+        api.close()
+    with open(log_path) as f:
+        log_text = f.read()
+    device_lines = [ln for ln in log_text.splitlines()
+                    if '"starting gatekeeper-tpu"' in ln]
+    if rc != 0:
+        raise AssertionError(f"process: SIGTERM gave exit {rc}:\n"
+                             f"{log_text[-3000:]}")
+    if not device_lines or f'"device": "{device}' not in device_lines[0]:
+        raise AssertionError(
+            f"process: the log names no CUDA device: {device_lines}")
+    print(json.dumps({
+        "phase": "process", "pods": n_pods, "constraints": n_constraints,
+        "ready_s": ready_s, "audit_series": series,
+        "violations": violations, "allowed": body["response"]["allowed"],
+        "sigterm_exit": rc, "sigterm_s": term_s,
+        "start_log": json.loads(device_lines[0]),
+        "seconds": time.perf_counter() - t0,
+    }), flush=True)
+
+
 def phase_kernels(rec, launches):
     """-> the kernel table rows. `launches`: {path: {kernel: count}}."""
     import torch
@@ -4365,6 +5520,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     phase_card()
+    # the runner phase's apiserver stand-in seeds its 100,000 pods in a
+    # process of its own while the phases before it run
+    runner_api = ApiProcess(100_000, 500, catalogue=True)
     phase_build()
     phase_native()
     port, ref, drv = phase_parity("cuda")
@@ -4375,20 +5533,34 @@ def main() -> int:
         port, ref, drv, fifo_fields)
     launches_br_parity = phase_bridge_parity(port, drv, interp_bodies)
     del port, ref, drv
-    rec, launches_full, client, drv = phase_full("cuda")
+    rec, launches_full, client, drv, full_counts = phase_full("cuda")
     phase_analysis("full", client, drv)
-    launches_live = phase_liveness(client, drv, rec)
+    # the depth of these four phases is cut (fewer batches and requests,
+    # no second load; widths and callers kept) so that the process phases
+    # below fit the smoke's time limit
+    launches_live = phase_liveness(client, drv, rec, n_batches=4)
     phase_profile(client, drv)
-    launches_webhook = phase_webhook(client, drv)
-    launches_ingest = phase_ingest(client, drv)
-    launches_part = phase_partitions(client, drv, rec)
-    launches_churn = phase_audit_churn(client, drv, rec)
+    launches_webhook = phase_webhook(client, drv, loads=((2048, 256),))
+    launches_ingest = phase_ingest(client, drv, framed=((1024, 256, 16),),
+                                   bridged=((1024, 256, 10_000),))
+    launches_part = phase_partitions(client, drv, rec, n=1024)
+    launches_churn = phase_audit_churn(client, drv, rec, n_join=8)
     del client, drv  # the pod-only cluster; the mixed one comes next
     torch.cuda.empty_cache()
-    phase_inventory_parity("cuda")
+    phase_inventory_parity("cuda", n_batches=2)
     client, drv, pairs, launches_inv = phase_inventory("cuda", rec)
     phase_analysis("inventory", client, drv)
     launches_out = phase_full_output(client, drv, rec, pairs)
+    del client, drv
+    torch.cuda.empty_cache()
+    launches_runner, state = phase_runner(rec, full_counts, api=runner_api)
+    try:
+        launches_ext = phase_extdata(rec, state)
+    finally:
+        _stop_runner(state)
+    del state
+    torch.cuda.empty_cache()
+    phase_process()
     rows = phase_kernels(
         rec, {"subset": launches_subset, "webhook_parity": launches_wh_parity,
               "ingest_parity": launches_ing_parity,
@@ -4397,7 +5569,8 @@ def main() -> int:
               "webhook": launches_webhook,
               "ingest": launches_ingest, "partitions": launches_part,
               "audit_churn": launches_churn,
-              "inventory": launches_inv, "full_output": launches_out}
+              "inventory": launches_inv, "full_output": launches_out,
+              "runner": launches_runner, "extdata": launches_ext}
     )
     phase_variants()
     print(json.dumps({"kernels": rows}), flush=True)

@@ -12,9 +12,12 @@ server and micro-batcher, and the logging, tracing, metrics, fault-point,
 circuit-breaker and event-fabric pieces they read) are copies of the JAX
 package's. Entry points: `constraint.Client` over `constraint.TorchDriver`,
 which runs on the card unless the caller passes device="cpu";
-`audit.AuditManager` over such a client; and `webhook.WebhookServer`,
-which serves AdmissionReviews over HTTP through `webhook.MicroBatcher`
-into one `Client.review_many` per micro-batch. Nothing here imports JAX or
+`audit.AuditManager` over such a client; `webhook.WebhookServer`,
+which serves AdmissionReviews over HTTP(S) through `webhook.MicroBatcher`
+into one `Client.review_many` per micro-batch; and the process itself,
+`python -m gatekeeper_tpu_torch.run` (`control.Runner` over a
+`control.KubeCluster`: watches, controllers, readiness, status, audit,
+webhook, external-data providers). Nothing here imports JAX or
 gatekeeper_tpu.
 """
 

@@ -1,6 +1,4 @@
 # Copied from gatekeeper_tpu/constraint/client.py; only imports and the edits noted in this header differ.
-# Edit: no external-data plane (set_external_data raises,
-# _prefetch_external_for is a no-op).
 # Edit: review_host's docstring: the port's webhook answers a failed fused
 # batch with the fail policy, so review_host is an oracle, not a rung.
 """The constraint-framework Client: engine-agnostic policy orchestration.
@@ -102,11 +100,17 @@ class Client:
         self._driver.init()
 
     def set_external_data(self, system) -> None:
-        """The external-data provider plane is not part of this package
-        yet; wiring one in is refused rather than ignored."""
-        raise NotImplementedError(
-            "external data is not supported by gatekeeper_tpu_torch"
-        )
+        """Wire the external-data system through the whole evaluation
+        stack: the client (batch epochs), the driver (prefetch + the
+        extdata row-feature screen), and the interpreter builtin's
+        process binding."""
+        from ..externaldata import set_system
+
+        self.external_data = system
+        hook = getattr(self._driver, "set_external_data", None)
+        if hook is not None:
+            hook(system)
+        set_system(system)
 
     def _extdata_begin(self) -> None:
         if self.external_data is not None:
@@ -498,8 +502,42 @@ class Client:
                 self._prefetch_external_for(reviews)
 
     def _prefetch_external_for(self, reviews: Sequence[Any]) -> None:
-        """No external-data plane here: `external_data` is always None,
-        so there is nothing to prefetch."""
+        """Engine-agnostic batch prefetch: extract + dedupe the batch's
+        external-data keys from the ingested templates' recorded call
+        sites, then at most one outbound fetch per provider. Works for
+        any driver exposing the interpreter (the TPU driver ALSO
+        prefetches on its own dispatch path — idempotent, the second
+        pass finds no misses)."""
+        system = self.external_data
+        interp = getattr(self._driver, "interp", None)
+        if system is None or interp is None:
+            return
+        try:
+            from ..externaldata.extract import batch_wants
+
+            with self._lock:
+                entries = list(self._templates.values())
+            wants_total: Dict[str, set] = {}
+            # extraction evaluates against the driver-mounted modules:
+            # hold the driver's mutation mutex (reads race module churn
+            # otherwise), but NEVER during the outbound fetch below
+            mutex = self._driver._mutex if hasattr(
+                self._driver, "_mutex"
+            ) else threading.RLock()
+            with mutex:
+                for e in entries:
+                    rep = getattr(e.template, "vectorizability", None)
+                    calls = getattr(rep, "external_calls", None)
+                    if not calls:
+                        continue
+                    w = batch_wants(interp, calls, reviews)
+                    if w:
+                        for p, ks in w.items():
+                            wants_total.setdefault(p, set()).update(ks)
+            if wants_total:
+                system.prefetch(wants_total)
+        except Exception:
+            pass
 
     def review_host(self, obj: Any, subset=None) -> Responses:
         """Host-interpreter review: same results as `review` by the

@@ -48,10 +48,18 @@ constraints by static cost. Reviews encode with the C token flattener
 (native/flatten.c, built with gcc on first use; a failed build raises)
 unless the caller passes encoder="python": the setting for a host with no
 C compiler, such as a serving image without gcc, which then encodes
-several times slower (PERF.md §5). Not carried over from TpuDriver (see
-ROADMAP.md): external data (a program reading "extdata:" row features
-raises NotImplementedError), the program store, and the per-query
-pair/render/phase metric series.
+several times slower (PERF.md §5).
+
+External data (`set_external_data`): a template whose analyzer report
+records `external_data` calls compiles with an "extdata:<kind>:<err|all>"
+row feature. Each batch and each sweep opens one fetch epoch and
+prefetches its deduped keys (one outbound fetch per provider); the
+feature's per-row bits are computed from the live response cache on every
+dispatch and staged volatile, never cached on the corpus, so a TTL expiry
+routes the rows back to the interpreter's re-check. Not carried over from
+TpuDriver (see ROADMAP.md): the program store, the warm path
+(`review_path_warm`, `warm_review_path`; nothing compiles here) and the
+per-query pair/render/phase metric series.
 """
 
 from __future__ import annotations
@@ -145,6 +153,10 @@ class _Corpus:
     # token slots the IR feature-liveness mask dropped before padding
     # (analysis/ir.py); 0 when encoded keep-all
     skipped_static: int = 0
+    # external-data keys per "extdata:" feature: (a list aligned with
+    # reviews of {provider -> keys}, None = unextractable row; their
+    # union over every row and call)
+    ext_keys: Optional[Dict[str, Any]] = None
 
 
 @dataclass
@@ -271,6 +283,9 @@ class TorchDriver(RegoDriver):
         self.liveness_batches = 0  # batches encoded under a live mask
         # target -> (constraint_gen, IrReport), computed lazily
         self._ir_reports: Dict[str, Tuple[int, Any]] = {}
+        # externaldata.ExternalDataSystem (set_external_data): batch
+        # prefetch and the extdata row-feature screens; None = no plane
+        self.external_data = None
 
     # -- module/data bookkeeping (cache invalidation) ------------------------
 
@@ -363,6 +378,12 @@ class TorchDriver(RegoDriver):
 
     # -- planes wired in by the serving process --------------------------------
 
+    def set_external_data(self, system) -> None:
+        """Wire the process's ExternalDataSystem (Runner/tests): the
+        driver prefetches each batch's deduped keys through it and
+        fills the extdata row-feature screens from its cache."""
+        self.external_data = system
+
     def set_attributor(self, attributor) -> None:
         """Wire an obs.CostAttributor: from here on every fused dispatch's
         measured `phase_seconds["dispatch"]` is apportioned per
@@ -400,6 +421,16 @@ class TorchDriver(RegoDriver):
                 )
         return interp
 
+    def _inventory_for(self, target: str, constraints) -> Any:
+        """The frozen inventory for an interpreter evaluation of
+        `constraints`, or an empty one when none of their templates may
+        read it (_reads_inventory): freezing the synced objects takes
+        seconds per 100,000 under the serving mutex, and the frozen
+        tree's millions of objects lengthen every later collection."""
+        if self._reads_inventory(target, constraints):
+            return self._inventory(target)
+        return freeze({})
+
     def _reads_inventory(self, target: str, constraints) -> bool:
         """Whether a template of `constraints` may read data.inventory:
         its analyzer report has an inventory ref (GK-V006) or a dynamic
@@ -424,6 +455,11 @@ class TorchDriver(RegoDriver):
         integ = self.integrity
         if integ is None:
             return []
+        if self._reads_external_data(target, constraints):
+            # a canary's synthetic keys must never reach a real provider
+            # (nor add a second fetch to the batch's epoch): the set's
+            # dispatches carry no canaries
+            return []
         chunk = min(N_CHUNK, _bucket(n, lo=64))
         slots = chunk * -(-n // chunk) - n
         if slots <= 0:
@@ -435,6 +471,15 @@ class TorchDriver(RegoDriver):
             ))
         except Exception:
             return []  # integrity accounting must never fail a dispatch
+
+    def _reads_external_data(self, target: str, constraints) -> bool:
+        """True when some constraint's template calls external_data (its
+        analyzer report records the call sites)."""
+        for kind in {c.get("kind") for c in constraints}:
+            rep = self.template_report(target, kind) if kind else None
+            if rep is not None and rep.external_calls:
+                return True
+        return False
 
     def _canary_check(
         self, target: str, sigkey: str, device, canary_split, subset=None,
@@ -562,6 +607,13 @@ class TorchDriver(RegoDriver):
             self._note_fallback(kind, code)
             self._programs[key] = None
             return None
+        extdata_feature = None
+        if report is not None:
+            mode = getattr(report, "extdata_mode", lambda: None)()
+            if mode is not None:
+                # feature encoding consumed by _extdata_row_bits:
+                # extdata:<kind>:<err|all>
+                extdata_feature = f"extdata:{kind}:{mode}"
         env = CompilerEnv(
             self.vocab,
             self.patterns,
@@ -570,6 +622,7 @@ class TorchDriver(RegoDriver):
             oracle_ns=f"{kind}|{key[2]}",
             oracle_ns_shared=f"{target}|{kind}",
             template_kind=kind,
+            extdata_feature=extdata_feature,
         )
         self.program_compiles += 1
         self._count("program_store_compiles_total", kind=kind)
@@ -587,14 +640,6 @@ class TorchDriver(RegoDriver):
                 "but compilation gave up: %s", kind, e,
             )
             prog = None
-        feats = prog.row_features if prog is not None else ()
-        ext = [f for f in feats if f.startswith("extdata:")]
-        if ext:
-            raise NotImplementedError(
-                f"template {kind}: its compiled program reads external-data "
-                f"row features {ext}; gatekeeper_tpu_torch has no external-"
-                "data plane yet (ROADMAP A3)"
-            )
         self._programs[key] = prog
         return prog
 
@@ -1106,7 +1151,10 @@ class TorchDriver(RegoDriver):
         )
         if needed:
             feats = self._row_feature_bits(target, corpus, needed)
-            self.kernel.stage_row_feats(stacked, feats)
+            self.kernel.stage_row_feats(
+                stacked, feats,
+                volatile=[n for n in needed if n.startswith("extdata:")],
+            )
         t1 = time.perf_counter()
         packed, hot, n_hot, sc, si = self.kernel.dispatch_need_all(
             policy, stacked, (corpus.g, corpus.g1), r_cap=R_CAP
@@ -1186,6 +1234,12 @@ class TorchDriver(RegoDriver):
             return {name: ones for name in names}
         out: Dict[str, np.ndarray] = {}
         for name in names:
+            if name.startswith("extdata:"):
+                # never cached in row_feats: the bits track the LIVE
+                # response cache (TTL expiry between sweeps must route
+                # rows back to the interpreter re-check)
+                out[name] = self._extdata_row_bits(target, corpus, name)
+                continue
             cached = corpus.row_feats.get(name)
             if cached is not None:
                 out[name] = cached
@@ -1224,6 +1278,128 @@ class TorchDriver(RegoDriver):
             corpus.row_feats[name] = feat
             out[name] = feat
         return out
+
+    # -- external data (docs/externaldata.md) --------------------------------
+
+    def _extdata_row_bits(
+        self, target: str, corpus: _Corpus, name: str
+    ) -> np.ndarray:
+        """Per-row screen bits for an "extdata:<kind>:<mode>" feature.
+
+        Key extraction (analyzer-recorded input-derived keys
+        expressions, evaluated per review) is cached on the corpus; the
+        batch's deduped union feeds ONE system.prefetch per dispatch —
+        that call IS the one-outbound-fetch-per-(provider, batch)
+        contract for the fused path. Bits:
+          * mode "err" (provably error-gated templates): True iff some
+            key of the row is NOT a clean cache hit — clean rows can
+            never produce an error entry, so they stay fused;
+          * mode "all": all-ones (the feature exists to drive
+            prefetch; violations may depend on response values, so
+            every matching row re-checks).
+        """
+        n = len(corpus.reviews)
+        ones = np.ones(n, bool)
+        system = self.external_data
+        parts = name.split(":")
+        kind = parts[1] if len(parts) > 1 else ""
+        mode = parts[2] if len(parts) > 2 else "all"
+        if system is None or not kind:
+            return ones
+        report = self.template_report(target, kind)
+        calls = getattr(report, "external_calls", None) if report else None
+        if not calls:
+            return ones
+        per_row, union = self._extdata_keys(corpus, name, calls)
+        if union:
+            system.prefetch(union)
+        if mode != "err":
+            return ones
+        bits = np.zeros(n, bool)
+        for i, wants in enumerate(per_row):
+            if wants is None:
+                bits[i] = True  # unextractable row: route it (sound)
+                continue
+            for p, ks in wants.items():
+                if any(not system.probe_clean(p, k) for k in ks):
+                    bits[i] = True
+                    break
+        bits |= np.asarray(corpus.row_fallback, bool)
+        return bits
+
+    def _extdata_keys(self, corpus: _Corpus, name: str, calls):
+        """The keys of an "extdata:" feature's calls, extracted once per
+        corpus and cached on it: per row {provider -> keys}, None for a
+        row some call cannot extract, and the union over every row and
+        call (batch_wants' answer). The sweep's prefetch and the row
+        screen share the one interpreter pass over the corpus."""
+        if corpus.ext_keys is None:
+            corpus.ext_keys = {}
+        cached = corpus.ext_keys.get(name)
+        if cached is not None:
+            return cached
+        from ..externaldata.extract import extract_keys
+
+        per_row: List[Optional[Dict[str, set]]] = []
+        union: Dict[str, set] = {}
+        for review in corpus.reviews:
+            wants: Optional[Dict[str, set]] = {}
+            for call in calls:
+                keys = (
+                    extract_keys(self.interp, call, review)
+                    if call.extractable and call.provider else None
+                )
+                if keys is None:
+                    wants = None
+                    continue
+                if keys:
+                    union.setdefault(call.provider, set()).update(keys)
+                if wants is not None:
+                    wants.setdefault(call.provider, set()).update(keys)
+            per_row.append(wants)
+        corpus.ext_keys[name] = (per_row, union)
+        return per_row, union
+
+    def _prefetch_external(
+        self, target: str, reviews: Sequence[Any], corpus=None,
+    ):
+        """Batch-plane prefetch for every external-data template in the
+        constraint set: extract + dedupe the batch's keys, then at most
+        one outbound fetch per provider. Best-effort — resolution
+        answers failures per the provider's failurePolicy. With the
+        sweep's `corpus`, a template the analyzer gives a screen mode
+        extracts through _extdata_keys, whose cache the row screen then
+        reads, instead of a second pass."""
+        system = self.external_data
+        if system is None:
+            return
+        try:
+            from ..externaldata.extract import batch_wants
+
+            wants_total: Dict[str, set] = {}
+            with self._mutex:
+                for (t, kind) in list(self._kind_modules):
+                    if t != target:
+                        continue
+                    rep = self.template_report(t, kind)
+                    calls = getattr(rep, "external_calls", None)
+                    if not calls:
+                        continue
+                    mode = rep.extdata_mode()
+                    if corpus is not None and mode is not None:
+                        _, w = self._extdata_keys(
+                            corpus, f"extdata:{kind}:{mode}", calls)
+                    else:
+                        w = batch_wants(self.interp, calls, reviews)
+                    if w:
+                        for p, ks in w.items():
+                            wants_total.setdefault(p, set()).update(ks)
+            if wants_total:
+                # OUTSIDE the serving mutex: a slow provider must stall
+                # only this batch, never the whole admission plane
+                system.prefetch(wants_total)
+        except Exception:
+            pass
 
     def _pattern_tokens(self, corpus: _Corpus, pid: int):
         """-> ([N, L] bool: token path matches pattern `pid`, [N, L] vids);
@@ -1281,6 +1457,16 @@ class TorchDriver(RegoDriver):
             return super().query_many(path, inputs, tracing)
         target = m.group(1)
         inputs = list(inputs)
+        if self.external_data is not None:
+            # batch plane: open a fresh fetch epoch and prefetch the
+            # batch's deduped keys (one outbound fetch per provider)
+            # BEFORE the dispatch — the fused screen and the interpreter
+            # renders then serve from the response cache
+            self.external_data.begin_batch()
+            self._prefetch_external(
+                target,
+                [H.hook_get_default(i or {}, "review", {}) for i in inputs],
+            )
         with self._mutex:
             # the monolithic dispatch's canaries: golden keyed per
             # constraint generation, attributed to logical device 0
@@ -1309,15 +1495,15 @@ class TorchDriver(RegoDriver):
         target, hook = m.group(1), m.group(2)
         with self._mutex:
             if hook == "violation":
-                constraints = None
+                constraints = self._constraints(target)
                 if subset is not None:
                     sub = frozenset(subset)
                     constraints = [
-                        c for c in self._constraints(target)
-                        if constraint_key(c) in sub
+                        c for c in constraints if constraint_key(c) in sub
                     ]
                 results = RegoDriver._violation(
                     self, target, input or {}, None, constraints=constraints,
+                    inventory=self._inventory_for(target, constraints),
                 )
             else:
                 results = RegoDriver._audit(self, target, None)
@@ -1489,9 +1675,14 @@ class TorchDriver(RegoDriver):
         if corpus is None:
             self.stats = {}
             return []
+        encode_s = time.perf_counter() - t0
+        if self.external_data is not None:
+            # each sweep is one batch epoch: the corpus's deduped keys
+            # fetch once; flagged rows then render from the cache
+            self.external_data.begin_batch()
+            self._prefetch_external(target, corpus.reviews, corpus=corpus)
         split = self._eval_reviews_split(
-            target, corpus.reviews, trace, corpus,
-            encode_s=time.perf_counter() - t0,
+            target, corpus.reviews, trace, corpus, encode_s=encode_s,
         )
         return [r for sub in split for r in sub]
 
@@ -1582,8 +1773,10 @@ class TorchDriver(RegoDriver):
                             n_pruned += 1
                         else:
                             if inventory is None:
-                                # frozen only when the interpreter renders
-                                inventory = self._inventory(target)
+                                # frozen only when the interpreter renders,
+                                # and only for a set that may read it
+                                inventory = self._inventory_for(
+                                    target, cs.constraints)
                             out = self._eval_template(
                                 target, cs.constraints[c_i], reviews[n_i],
                                 inventory, trace, frozen_review=fr,

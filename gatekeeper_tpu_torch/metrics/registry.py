@@ -1,12 +1,7 @@
 # Copied from gatekeeper_tpu/metrics/registry.py; only these edits differ.
-# Edit: serve_metrics serves /metrics alone: the /debug routes (traces,
-# costs, flight records, decisions, SLO, scheduler, partitions, programs)
-# and their renderers (export_traces, export_decisions, _traces_n,
-# _debug_costs_k, and the json import only they used) read planes that are
-# not ported (ROADMAP A3, A10), or, for costs, partitions and programs,
-# serve documents no route of the port's webhook reads (the attributor's
-# table(), the dispatcher's plan_table() and programs_table() build them);
-# the module logger is named gatekeeper_tpu_torch.metrics.
+# Edit: serve_metrics takes no `recorder` and serves no
+# /debug/flightrecords (the flight recorder is ROADMAP A10); the module
+# logger is named gatekeeper_tpu_torch.metrics.
 """In-process metrics: counters, gauges, distributions with optional
 histogram buckets; Prometheus text format exposition (with OpenMetrics
 trace-id exemplars) over stdlib HTTP. Per-family series cardinality is
@@ -18,6 +13,7 @@ of growing the registry without bound."""
 from __future__ import annotations
 
 import bisect
+import json
 import logging
 import os
 import threading
@@ -413,10 +409,30 @@ def serve_metrics(
     registry: MetricsRegistry,
     port: int = 0,
     bind_addr: str = "127.0.0.1",
+    tracer=None,
+    attributor=None,
+    decisions=None,
+    partitions=None,
+    slo=None,
+    sched=None,
 ) -> ThreadingHTTPServer:
     """Serve /metrics (Prometheus text) on a background thread; returns
     the server (server_address[1] carries the bound port). The reference
-    serves the same on --prometheus-port 8888."""
+    serves the same on --prometheus-port 8888; in-cluster runs bind
+    0.0.0.0 so Prometheus can scrape the pod IP (run.py wires this).
+    With a tracer, /debug/traces serves the trace ring (?trace_id= /
+    ?limit= / ?format=otlp — docs/observability.md); an attributor adds
+    /debug/costs (the top-K cost table), a decision log adds /debug/decisions, an SLO
+    engine adds /debug/slo (live attainment/burn/saturation,
+    docs/observability.md §SLO & saturation), a sched callable
+    (returning per-plane scheduler snapshots) adds /debug/sched
+    (admission scheduling: policy/overload/shed split + per-tenant
+    quota table, docs/operations.md §Admission scheduling), and a
+    partition dispatcher adds /debug/partitions (the live cost/locality
+    plan composition) and /debug/programs (the compile plane: per-
+    partition sub-program signatures + program-store stats,
+    docs/compile.md) — the same debug surface the health plane
+    serves."""
 
     class _Handler(BaseHTTPRequestHandler):
         def do_GET(self):  # noqa: N802
@@ -424,6 +440,41 @@ def serve_metrics(
             if route == "/metrics":
                 payload = registry.prometheus_text().encode()
                 ctype = "text/plain; version=0.0.4"
+            elif tracer is not None and route == "/debug/traces":
+                payload = export_traces(tracer, self.path).encode()
+                ctype = "application/json"
+            elif attributor is not None and route == "/debug/costs":
+                payload = json.dumps(
+                    attributor.table(_debug_costs_k(self.path))
+                ).encode()
+                ctype = "application/json"
+            elif decisions is not None and route == "/debug/decisions":
+                payload = export_decisions(decisions, self.path).encode()
+                ctype = (
+                    "application/x-ndjson"
+                    if "format=ndjson" in self.path
+                    else "application/json"
+                )
+            elif slo is not None and route == "/debug/slo":
+                from ..obs.slo import export_slo
+
+                payload = export_slo(slo, self.path).encode()
+                ctype = "application/json"
+            elif sched is not None and route == "/debug/sched":
+                from ..sched import export_sched
+
+                payload = export_sched(
+                    sched() if callable(sched) else sched, self.path
+                ).encode()
+                ctype = "application/json"
+            elif partitions is not None and route == "/debug/partitions":
+                payload = json.dumps(partitions.plan_table()).encode()
+                ctype = "application/json"
+            elif partitions is not None and route == "/debug/programs":
+                payload = json.dumps(
+                    partitions.programs_table()
+                ).encode()
+                ctype = "application/json"
             else:
                 payload = b'{"error": "not found"}'
                 self.send_response(404)
@@ -445,3 +496,66 @@ def serve_metrics(
     t = threading.Thread(target=httpd.serve_forever, daemon=True)
     t.start()
     return httpd
+
+
+def _traces_n(path: str) -> int:
+    """?n=/?limit= from a /debug/traces request path (default 50,
+    clamped). `limit` is the documented name; `n` stays accepted."""
+    from urllib.parse import parse_qs, urlparse
+
+    q = parse_qs(urlparse(path).query)
+    raw = (q.get("limit") or q.get("n") or ["50"])[0]
+    try:
+        n = int(raw)
+    except (ValueError, TypeError):
+        n = 50
+    return max(1, min(n, 1000))
+
+
+def _debug_costs_k(path: str) -> Optional[int]:
+    """?k= for /debug/costs (default 10; k=0 returns every row)."""
+    from urllib.parse import parse_qs, urlparse
+
+    try:
+        k = int(parse_qs(urlparse(path).query).get("k", ["10"])[0])
+    except (ValueError, TypeError):
+        k = 10
+    return None if k <= 0 else min(k, 10_000)
+
+
+def export_decisions(decisions, path: str) -> str:
+    """The one /debug/decisions renderer both HTTP planes (health +
+    metrics) share: ?trace_id= / ?verdict= / ?plane= filter,
+    ?limit=/?n= bounds the count, ?format=ndjson switches to
+    one-record-per-line export (docs/observability.md §Decision log)."""
+    from urllib.parse import parse_qs, urlparse
+
+    q = parse_qs(urlparse(path).query)
+
+    def _one(name):
+        return (q.get(name) or [None])[0] or None
+
+    query = {
+        "trace_id": _one("trace_id"),
+        "verdict": _one("verdict"),
+        "plane": _one("plane"),
+        "limit": _traces_n(path),
+    }
+    if (_one("format") or "").lower() == "ndjson":
+        return decisions.export_ndjson(**query)
+    return decisions.export_json(**query)
+
+
+def export_traces(tracer, path: str) -> str:
+    """The one /debug/traces renderer both HTTP planes (health +
+    metrics) share: ?trace_id= narrows to one trace, ?limit=/?n=
+    bounds the count, ?format=otlp switches to OTLP-JSON span export."""
+    from urllib.parse import parse_qs, urlparse
+
+    q = parse_qs(urlparse(path).query)
+    trace_id = (q.get("trace_id") or [None])[0] or None
+    n = _traces_n(path)
+    fmt = (q.get("format") or [""])[0].lower()
+    if fmt == "otlp":
+        return tracer.export_otlp(n=n, trace_id=trace_id)
+    return tracer.export_json(n=n, trace_id=trace_id)

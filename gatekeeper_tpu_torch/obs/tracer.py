@@ -1,8 +1,7 @@
 # Copied from gatekeeper_tpu/obs/tracer.py; only these edits differ.
-# Edit: the JSON/OTLP exporters, Tracer.size/clear and span_breakdown are
-# left out (the audit manager and the webhook record spans and tests read
-# them back with recent/get); of the OTLP id helpers only _otlp_id, which
-# format_traceparent reads, is kept.
+# Edit: Tracer.size/clear and span_breakdown are left out (they serve the
+# soak plane and the bench, ROADMAP A10); of the OTLP id helpers only
+# _otlp_id, which format_traceparent and export_otlp read, is kept.
 """In-process request tracing: spans, traces, ring-buffer retention.
 
 The enforcement plane must be able to account for every decision it
@@ -33,6 +32,7 @@ from __future__ import annotations
 
 import hashlib
 import itertools
+import json
 import re
 import threading
 import time
@@ -338,3 +338,68 @@ class Tracer:
                 if t["trace_id"] == trace_id:
                     return {"trace_id": trace_id, "spans": list(t["spans"])}
         return None
+
+    def export_json(self, n: int = 50, trace_id: Optional[str] = None) -> str:
+        """JSON export of the ring; `trace_id` narrows to one trace
+        (empty list when it is not retained) — the `/debug/traces?
+        trace_id=` lookup both HTTP planes serve."""
+        if trace_id is not None:
+            t = self.get(trace_id)
+            return json.dumps({"traces": [t] if t is not None else []})
+        return json.dumps({"traces": self.recent(n)})
+
+    def export_otlp(self, n: int = 50, trace_id: Optional[str] = None) -> str:
+        """OTLP-JSON span export (`/debug/traces?format=otlp`): the ring
+        rendered as one resourceSpans/scopeSpans document an OTLP
+        collector's JSON receiver ingests directly. Internal ids map to
+        the 128/64-bit hex forms OTLP requires (W3C-ingested trace ids
+        pass through unchanged); span attrs become stringValue
+        attributes."""
+        if trace_id is not None:
+            t = self.get(trace_id)
+            traces = [t] if t is not None else []
+        else:
+            traces = self.recent(n)
+        spans = []
+        for tr in traces:
+            tid = _otlp_id(tr["trace_id"], 32)
+            for sp in tr.get("spans", []):
+                spans.append({
+                    "traceId": tid,
+                    "spanId": _otlp_id(sp.get("span_id"), 16),
+                    "parentSpanId": (
+                        _otlp_id(sp["parent_id"], 16)
+                        if sp.get("parent_id")
+                        else ""
+                    ),
+                    "name": sp.get("name", ""),
+                    "kind": 1,  # SPAN_KIND_INTERNAL
+                    "startTimeUnixNano": str(
+                        int(sp.get("start", 0.0) * 1e9)
+                    ),
+                    "endTimeUnixNano": str(int(sp.get("end", 0.0) * 1e9)),
+                    "status": {
+                        "code": 2 if sp.get("status") == "error" else 1
+                    },
+                    "attributes": [
+                        {
+                            "key": str(k),
+                            "value": {"stringValue": str(v)},
+                        }
+                        for k, v in (sp.get("attrs") or {}).items()
+                    ],
+                })
+        return json.dumps({
+            "resourceSpans": [{
+                "resource": {
+                    "attributes": [{
+                        "key": "service.name",
+                        "value": {"stringValue": "gatekeeper-tpu"},
+                    }],
+                },
+                "scopeSpans": [{
+                    "scope": {"name": "gatekeeper_tpu.obs"},
+                    "spans": spans,
+                }],
+            }],
+        })

@@ -1,6 +1,5 @@
 # Copied from gatekeeper_tpu/rego/builtins.py; only imports and the edits noted in this header differ.
 # Edit: source paths in comments point into the upstream Gatekeeper repo (gatekeeper/...).
-# Edit: external_data raises NotImplementedError (no provider plane here).
 """Builtin functions for the Rego interpreter.
 
 Covers the builtin surface exercised by the reference's policy library
@@ -380,12 +379,40 @@ def _is_type(t: str) -> Callable[[Any], bool]:
 
 
 def _external_data(req):
-    """Gatekeeper v3's external_data builtin. The provider plane is not
-    part of this package yet, so a template that calls it fails loudly
-    instead of evaluating as if no provider answered."""
-    raise NotImplementedError(
-        "external_data is not supported by gatekeeper_tpu_torch"
+    """Gatekeeper v3's external_data builtin: {"provider": name,
+    "keys": [...]} -> {"responses": [[k, v]...], "errors": [[k,
+    reason]...], "status_code", "system_error"}. Resolution goes
+    through the process's ExternalDataSystem (externaldata/binding.py):
+    cache-first, with the batch plane having prefetched the
+    micro-batch's deduped keys in ONE outbound fetch per provider. No
+    system bound or unknown provider -> undefined (counted), matching
+    OPA's behavior for an unconfigured builtin."""
+    _want(req, "object")
+    if "provider" not in req or "keys" not in req:
+        raise BuiltinError("external_data: want {provider, keys}")
+    provider = _want(req["provider"], "string")
+    keys_val = _want(req["keys"], "array", "set")
+    keys = []
+    items = (
+        sorted(keys_val, key=sort_key)
+        if isinstance(keys_val, frozenset)
+        else keys_val
     )
+    for k in items:
+        _want(k, "string")
+        keys.append(k)
+    from ..externaldata import UnknownProviderError, get_system
+
+    system = get_system()
+    if system is None:
+        raise BuiltinError(
+            "external_data: no provider system configured"
+        )
+    try:
+        resp = system.resolve(provider, keys)
+    except UnknownProviderError as e:
+        raise BuiltinError(f"external_data: {e.args[0]}")
+    return freeze(resp)
 
 
 def _glob_match(pattern, delimiters, match):

@@ -7,16 +7,18 @@ fused device dispatch (server.py: `MicroBatcher` -> `Client.review_many`
 on TorchDriver, served over HTTP by `WebhookServer` and, with
 `ingest=True`, over the framed stream of gatekeeper_tpu_torch/ingest), and
 the native HTTP front's Python back half (bridge.py: `BridgeStack`, the C++
-front of native/bridge_frontend.cpp feeding the same batcher). Mutation,
-the agent plane and certificates are not ported (ROADMAP A3e, A5, A10).
+front of native/bridge_frontend.cpp feeding the same batcher), and TLS
+certificates (certs.py: `CertRotator`, `CaBundleInjector`). Mutation and
+the agent plane are not ported (ROADMAP A5, A10).
 """
 
+from .certs import CaBundleInjector, CertRotator
 from .policy import AdmissionResponse, TraceConfig, ValidationHandler
 from .namespacelabel import IGNORE_LABEL, NamespaceLabelHandler
 from .server import MicroBatcher, WebhookServer, review_envelope
 
 __all__ = [
-    "AdmissionResponse", "IGNORE_LABEL", "MicroBatcher",
+    "AdmissionResponse", "CaBundleInjector", "CertRotator", "IGNORE_LABEL", "MicroBatcher",
     "NamespaceLabelHandler", "TraceConfig", "ValidationHandler",
     "WebhookServer", "review_envelope",
 ]

@@ -22,13 +22,14 @@
 # kernel here. The whole-plane fault point fails every partition's breaker
 # once and answers the batch with the fail policy. requests_batched
 # counts the requests that got a fused answer.
-# Edit: with no Runner in this package yet (ROADMAP A3e), WebhookServer
-# hands `integrity` and `attributor` to the driver (set_integrity,
-# set_attributor) as the reference's Runner does.
+# Edit: WebhookServer also hands `integrity` and `attributor` to the
+# driver (set_integrity, set_attributor), as the reference's Runner does,
+# so a server built without the Runner wires them too.
 # Edit: planes that are not ported are left out with their arguments:
 # mutation (ROADMAP A5) and the agent plane (A10), the corpus analyzer
-# (A5; the partitioner gets corpus=None), external-data fetch facts (A3d),
-# the flight recorder (A10), TLS and cert rotation (A3e). A path other
+# (A5; the partitioner gets corpus=None), the flight recorder and the
+# fleet's shared cert store (A10; `rotator` takes the pod-local
+# CertRotator or any object with its interface). A path other
 # than /v1/admit and /v1/admitlabel is answered 404, so the /readyz and
 # /debug/partitions, /debug/programs documents are not served (the
 # dispatcher's plan_table and programs_table build them).
@@ -296,6 +297,11 @@ class MicroBatcher:
             plane=self.plane, partition=str(partition),
         )
 
+    def _extdata_fetch_count(self) -> int:
+        ed = getattr(self.client, "external_data", None) if self.client \
+            else None
+        return int(getattr(ed, "fetch_count", 0) or 0)
+
     def _liveness_skipped_count(self) -> int:
         """Driver-cumulative count of provably dead token slots the IR
         feature-liveness mask dropped before padding; dispatch sites
@@ -320,10 +326,11 @@ class MicroBatcher:
 
     def _note_decisions(
         self, batch, route: str, rows_dispatched=None, rows_total=None,
-        per_request=None, columns_skipped_static: Optional[int] = None,
+        extdata_fetches: Optional[int] = None, per_request=None,
+        columns_skipped_static: Optional[int] = None,
     ) -> None:
         """Stash dispatch facts for every traced member request. Batch-
-        shared facts (route, rows, cache hits, device share) apply to all;
+        shared facts (route, rows, fetches, device share) apply to all;
         `per_request` maps batch index -> overriding facts (the
         partitioned path's per-request partition sets)."""
         if self.decisions is None:
@@ -338,6 +345,8 @@ class MicroBatcher:
                 rows_dispatched if rows_dispatched is not None
                 else rows_total
             )
+        if extdata_fetches is not None:
+            base["extdata_fetches"] = extdata_fetches
         if columns_skipped_static is not None:
             # dead token slots the IR liveness mask dropped from this
             # batch's encode
@@ -531,6 +540,7 @@ class MicroBatcher:
                 )
             self._unavailable(batch, wall0, t0, "circuit breaker open")
             return
+        fetch0 = self._extdata_fetch_count()
         skip0 = self._liveness_skipped_count()
         try:
             fire("webhook.batch_dispatch")
@@ -559,6 +569,7 @@ class MicroBatcher:
         self._note_decisions(
             batch, self._driver_route(),
             rows_dispatched=rows, rows_total=rows,
+            extdata_fetches=self._extdata_fetch_count() - fetch0,
             columns_skipped_static=self._liveness_skipped_count() - skip0,
         )
         for (_, fut, ctx, _, _, _), review, responses in zip(
@@ -625,7 +636,16 @@ class MicroBatcher:
             self._unavailable(batch, wall0, t0, f"fused batch failed: {e!r}")
             part.run_probes(reviews)
             return
+        fetch0 = self._extdata_fetch_count()
         skip0 = self._liveness_skipped_count()
+        prefetch = getattr(client, "prefetch_external", None)
+        if prefetch is not None:
+            # one deduped external-data fetch epoch for the whole batch
+            # (every partition dispatch then serves from the cache)
+            try:
+                prefetch(reviews)
+            except Exception:
+                pass
         try:
             masks = client.partition_match_mask(
                 reviews, [p.subset for p in plan.partitions]
@@ -766,7 +786,9 @@ class MicroBatcher:
                     )
                 per_request[i] = facts
             self._note_decisions(
-                batch, self._driver_route(), per_request=per_request,
+                batch, self._driver_route(),
+                extdata_fetches=self._extdata_fetch_count() - fetch0,
+                per_request=per_request,
                 columns_skipped_static=self._liveness_skipped_count() - skip0,
             )
         for i, (_, fut, ctx, _, _, _) in enumerate(batch):
@@ -921,8 +943,10 @@ class BatchedValidationHandler(ValidationHandler):
 
 
 class WebhookServer:
-    """Stdlib HTTP server: POST /v1/admit and /v1/admitlabel with
-    AdmissionReview JSON bodies, over HTTP/1.1 keep-alive."""
+    """Stdlib HTTP(S) server: POST /v1/admit and /v1/admitlabel with
+    AdmissionReview JSON bodies, over HTTP/1.1 keep-alive. `tls=True`
+    terminates HTTPS with the rotating self-signed pair from
+    `certs.CertRotator` (cert_dir defaults to a per-server temp dir)."""
 
     def __init__(
         self,
@@ -934,6 +958,13 @@ class WebhookServer:
         exempt_namespaces=None,
         window_ms: float = 2.0,
         metrics=None,
+        tls: bool = False,
+        cert_dir: Optional[str] = None,
+        # pre-built cert rotator; None builds a pod-local CertRotator in
+        # cert_dir. When the rotator exposes on_rotate, a rotation
+        # re-loads the live SSL context so new handshakes serve the new
+        # pair WITHOUT a restart.
+        rotator=None,
         request_timeout: float = DEFAULT_REQUEST_TIMEOUT,
         trace_config=None,
         event_sink=None,
@@ -1186,10 +1217,48 @@ class WebhookServer:
             daemon_threads = True
 
         self._httpd = _Server((bind_addr, port), _Handler)
-        self.scheme = "http"
+        self.rotator = rotator
+        self._ssl_ctx = None
+        if tls:
+            import ssl
+            import tempfile
+
+            from .certs import CertRotator
+
+            if self.rotator is None:
+                if cert_dir is None:
+                    cert_dir = tempfile.mkdtemp(prefix="gk-certs-")
+                self.rotator = CertRotator(cert_dir)
+            cert_path, key_path = self.rotator.ensure()  # CertsMounted gate
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(cert_path, key_path)
+            self._ssl_ctx = ctx
+            self._httpd.socket = ctx.wrap_socket(
+                self._httpd.socket, server_side=True
+            )
+            # rotation pickup without restart: SSLContext is live — a
+            # re-load swaps the pair for every handshake AFTER this
+            # point while established connections finish on the old one
+            on_rotate = getattr(self.rotator, "on_rotate", None)
+            if on_rotate is not None:
+                on_rotate(self._reload_tls)
+        self.scheme = "https" if tls else "http"
         self.port = self._httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
         self.warm = False
+
+    def _reload_tls(self) -> None:
+        if self._ssl_ctx is None or self.rotator is None:
+            return
+        try:
+            self._ssl_ctx.load_cert_chain(
+                self.rotator.cert_path, self.rotator.key_path
+            )
+        except Exception:
+            # a torn read is impossible (atomic-rename installs), but a
+            # rotation racing deletion must not kill serving — the old
+            # pair keeps serving until the next successful reload
+            pass
 
     def start(self) -> None:
         self.batcher.start()

@@ -460,8 +460,12 @@ def test_prune_index_candidates_deduped():
 
 
 def test_extdata_feature_raises(monkeypatch):
-    """A program reading an external-data row feature is refused: the
-    port has no external-data plane."""
+    """A program reading an external-data row feature no longer raises
+    (the port has an external-data plane): with no
+    ExternalDataSystem wired, the feature's bits route every row to the
+    interpreter's re-check, so the results equal the interpreter
+    driver's; the bits are staged volatile and never cached on the
+    corpus."""
     orig = torchdriver_mod.compile_program
 
     def with_extdata(env, modules, params):
@@ -472,9 +476,13 @@ def test_extdata_feature_raises(monkeypatch):
 
     monkeypatch.setattr(torchdriver_mod, "compile_program", with_extdata)
     scenario = _selfjoin(0)
-    client = _build(TBackend, TTarget, TorchDriver(device="cpu"), scenario)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        client.audit()
+    drv = TorchDriver(device="cpu")
+    client = _build(TBackend, TTarget, drv, scenario)
+    got = client.audit().by_target[TARGET].results
+    ref = _build(TBackend, TTarget, TRegoDriver(), scenario)
+    want = ref.audit().by_target[TARGET].results
+    assert _keys(got) == _keys(want) and want
+    assert "extdata:K8sX:err" not in drv._corpus[TARGET].row_feats
 
 
 def test_hot_row_redispatch_reads_the_same_bits(monkeypatch):

@@ -270,6 +270,99 @@ def test_driver_planes_run_with_jax_blocked():
     ]
 
 
+PROCESS_PLANES = (
+    "gatekeeper_tpu_torch.externaldata",
+    "gatekeeper_tpu_torch.externaldata.binding",
+    "gatekeeper_tpu_torch.externaldata.cache",
+    "gatekeeper_tpu_torch.externaldata.extract",
+    "gatekeeper_tpu_torch.externaldata.lint",
+    "gatekeeper_tpu_torch.externaldata.provider",
+    "gatekeeper_tpu_torch.externaldata.system",
+    "gatekeeper_tpu_torch.control.controllers",
+    "gatekeeper_tpu_torch.control.kubecluster",
+    "gatekeeper_tpu_torch.control.readiness",
+    "gatekeeper_tpu_torch.control.runner",
+    "gatekeeper_tpu_torch.control.status",
+    "gatekeeper_tpu_torch.control.upgrade",
+    "gatekeeper_tpu_torch.control.watch",
+    "gatekeeper_tpu_torch.webhook.certs",
+    "gatekeeper_tpu_torch.run",
+)
+
+
+def test_process_planes_run_with_jax_blocked(tmp_path):
+    """The external-data plane, the control plane, the webhook's
+    certificates and the process entry import, and a Runner over the
+    FakeCluster (TLS on, a Provider CR and an external-data template
+    ingested through the controllers) audits and answers an HTTPS
+    AdmissionReview on the CPU, in an interpreter where importing jax or
+    the JAX package fails."""
+    assert set(PROCESS_PLANES) <= set(_modules())
+    code = (
+        "import importlib, json, ssl, sys, urllib.request\n"
+        "for m in ('jax', 'jaxlib', 'gatekeeper_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {PROCESS_PLANES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from gatekeeper_tpu_torch.constraint import Backend, K8sValidationTarget\n"
+        "from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver\n"
+        "from gatekeeper_tpu_torch.control import FakeCluster, Runner\n"
+        "class Fetcher:\n"
+        "    def fetch(self, provider, keys):\n"
+        "        return [{'key': k, 'error': 'unsigned'} if 'bad' in k\n"
+        "                else {'key': k, 'value': 'ok'} for k in keys], ''\n"
+        "rego = ('package ext\\nviolation[{\"msg\": m}] {\\n'\n"
+        "        ' imgs := [i | i := input.review.object.spec.containers[_].image]\\n'\n"
+        "        ' r := external_data({\"provider\": \"sig\", \"keys\": imgs})\\n'\n"
+        "        ' count(r.errors) > 0\\n m := sprintf(\"%v\", [r.errors])\\n}\\n')\n"
+        "c = FakeCluster()\n"
+        "c.apply({'apiVersion': 'externaldata.gatekeeper.sh/v1alpha1',\n"
+        "         'kind': 'Provider', 'metadata': {'name': 'sig'},\n"
+        "         'spec': {'url': 'http://127.0.0.1:9/x', 'timeout': 1}})\n"
+        "c.apply({'apiVersion': 'templates.gatekeeper.sh/v1beta1',\n"
+        "         'kind': 'ConstraintTemplate', 'metadata': {'name': 'k8sext'},\n"
+        "         'spec': {'crd': {'spec': {'names': {'kind': 'K8sExt'}}},\n"
+        "                  'targets': [{'target': chip_smoke.TARGET, 'rego': rego}]}})\n"
+        "c.apply({'apiVersion': 'constraints.gatekeeper.sh/v1beta1',\n"
+        "         'kind': 'K8sExt', 'metadata': {'name': 'sig'}, 'spec': {}})\n"
+        "c.apply({'apiVersion': 'config.gatekeeper.sh/v1alpha1', 'kind': 'Config',\n"
+        "         'metadata': {'name': 'config', 'namespace': 'gatekeeper-system'},\n"
+        "         'spec': {'sync': {'syncOnly': [{'group': '', 'version': 'v1',\n"
+        "                                         'kind': 'Pod'}]}}})\n"
+        "for i in range(6):\n"
+        "    p = chip_smoke.make_pod(i)\n"
+        "    p['spec']['containers'] = [{'name': 'c', 'image': 'bad' if i % 3 == 0 else 'ok'}]\n"
+        "    c.apply(p)\n"
+        "client = Backend(TorchDriver(device='cpu')).new_client(K8sValidationTarget())\n"
+        f"r = Runner(c, client, chip_smoke.TARGET, webhook_tls=True, cert_dir={str(tmp_path)!r},\n"
+        "           audit_interval=3600.0)\n"
+        "r.external_data.fetcher = Fetcher()\n"
+        "try:\n"
+        "    r.start()\n"
+        "    assert r.wait_ready(60)\n"
+        "    n = r.audit.audit().total_violations\n"
+        "    p = chip_smoke.make_pod(99)\n"
+        "    p['spec']['containers'] = [{'name': 'c', 'image': 'bad:1'}]\n"
+        "    req = chip_smoke.admission_request(p, 'u')\n"
+        "    ctx = ssl.create_default_context(cafile=r.webhook.rotator.ca_path)\n"
+        "    ctx.check_hostname = False\n"
+        "    url = f'https://127.0.0.1:{r.webhook.port}/v1/admit'\n"
+        "    out = json.loads(urllib.request.urlopen(\n"
+        "        url, chip_smoke._envelope(req), timeout=60, context=ctx).read())\n"
+        "finally:\n"
+        "    r.stop()\n"
+        "print(n, out['response']['allowed'], r.external_data.fetch_count)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["2", "False", "2"]
+
+
 def test_entry_and_inventory_joins_run_with_jax_blocked():
     """The harness step (gatekeeper_tpu_torch.entry) and an audit over the
     uniqueness joins run on the CPU in an interpreter where importing jax

@@ -8,6 +8,7 @@ response bodies."""
 
 import io
 import json
+import os
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -613,21 +614,41 @@ UNPORTED = [
 ]
 
 
-# the driver planes (partitions, cost attribution, integrity) have their
-# arguments since they were ported; those cases check the wiring instead
+# the driver planes (partitions, cost attribution, integrity) and TLS have
+# their arguments since they were ported; those cases check the wiring
+# instead
 PORTED = {"partitions", "partition_devices", "attributor", "replica",
-          "integrity"}
+          "integrity", "tls", "cert_dir", "rotator"}
+TLS_ARGS = {"tls", "cert_dir", "rotator"}
 
 
 @pytest.mark.parametrize("name,value", UNPORTED, ids=[n for n, _ in UNPORTED])
-def test_unported_plane_raises(client, name, value):
+def test_unported_plane_raises(client, name, value, tmp_path):
     """The planes not ported have no arguments: the server cannot be
     built with one and then serve without it. The ported driver planes
     are accepted and handed to the batcher, the partitioner and the
-    driver."""
+    driver; the TLS arguments make the server serve HTTPS with the
+    rotator's pair."""
     from gatekeeper_tpu_torch.integrity import IntegrityPlane
     from gatekeeper_tpu_torch.obs import CostAttributor
+    from gatekeeper_tpu_torch.webhook import CertRotator
 
+    if name in TLS_ARGS:
+        kw = {"tls": True, "cert_dir": str(tmp_path / "certs")}
+        if name == "rotator":
+            kw = {"tls": True, "rotator": CertRotator(str(tmp_path / "rot"))}
+        server = WebhookServer(client, TARGET, **kw)
+        server.start()
+        try:
+            assert server.scheme == "https"
+            assert os.path.exists(server.rotator.cert_path)
+            if name == "rotator":
+                assert server.rotator is kw["rotator"]
+            else:
+                assert server.rotator.cert_dir == kw["cert_dir"]
+        finally:
+            server.stop()
+        return
     if name not in PORTED:
         with pytest.raises(TypeError, match=name):
             WebhookServer(client, TARGET, **{name: value})
