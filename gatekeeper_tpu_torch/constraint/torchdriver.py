@@ -44,7 +44,9 @@ dispatch packs canary reviews into its padding slots and strips them
 before any result is returned, and a shadow swaps only after replaying
 the golden canaries; with a cost attributor (`set_attributor`) each
 dispatch's measured `phase_seconds["dispatch"]` is apportioned over its
-constraints by static cost. Reviews encode with the C token flattener
+constraints by static cost. The host oracle (`query_host`, the shadow
+oracle's path) lets fused dispatches queued on the serving mutex go first
+(for at most ORACLE_YIELD_S). Reviews encode with the C token flattener
 (native/flatten.c, built with gcc on first use; a failed build raises)
 unless the caller passes encoder="python": the setting for a host with no
 C compiler, such as a serving image without gcc, which then encodes
@@ -69,8 +71,10 @@ import json
 import logging
 import os
 import re
+import threading
 import time
 from collections import OrderedDict
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -120,6 +124,10 @@ N_CHUNK = 32768
 # Hot-row window of the whole-corpus dispatch; a chunk with more hot rows
 # is re-dispatched alone with a larger window.
 R_CAP = 1024
+
+# Longest the host oracle (query_host) waits for queued fused dispatches
+# before it takes the serving mutex anyway.
+ORACLE_YIELD_S = 1.0
 
 
 def _params_key(params: Any) -> str:
@@ -286,6 +294,9 @@ class TorchDriver(RegoDriver):
         # externaldata.ExternalDataSystem (set_external_data): batch
         # prefetch and the extdata row-feature screens; None = no plane
         self.external_data = None
+        # fused dispatches waiting for the serving mutex (_serving)
+        self._fused_waiting = 0
+        self._waiting_lock = threading.Lock()
 
     # -- module/data bookkeeping (cache invalidation) ------------------------
 
@@ -1467,7 +1478,7 @@ class TorchDriver(RegoDriver):
                 target,
                 [H.hook_get_default(i or {}, "review", {}) for i in inputs],
             )
-        with self._mutex:
+        with self._serving():
             # the monolithic dispatch's canaries: golden keyed per
             # constraint generation, attributed to logical device 0
             sigkey = f"gen{self._constraint_gen}"
@@ -1479,6 +1490,22 @@ class TorchDriver(RegoDriver):
             )
         self._canary_check(target, sigkey, 0, split[len(inputs):])
         return [Response(target=target, results=r) for r in split[:len(inputs)]]
+
+    @contextmanager
+    def _serving(self):
+        """The serving mutex for a fused dispatch, counted while it waits
+        so that query_host, the host oracle, yields to it."""
+        with self._waiting_lock:
+            self._fused_waiting += 1
+        try:
+            self._mutex.acquire()
+        finally:
+            with self._waiting_lock:
+                self._fused_waiting -= 1
+        try:
+            yield
+        finally:
+            self._mutex.release()
 
     def query_host(
         self, path: str, input: Any = None, subset=None
@@ -1493,6 +1520,13 @@ class TorchDriver(RegoDriver):
         if m is None:
             raise ValueError(f"unsupported query path: {path!r}")
         target, hook = m.group(1), m.group(2)
+        # an oracle evaluation takes the serving mutex for 0.1-0.3 s over
+        # hundreds of constraints: let queued fused dispatches go first
+        # (for at most ORACLE_YIELD_S), or back-to-back oracle calls hold
+        # admission batches past their timeout
+        deadline = time.monotonic() + ORACLE_YIELD_S
+        while self._fused_waiting and time.monotonic() < deadline:
+            time.sleep(0.001)
         with self._mutex:
             if hook == "violation":
                 constraints = self._constraints(target)
@@ -1529,7 +1563,7 @@ class TorchDriver(RegoDriver):
         target = m.group(1)
         fire(device_point("driver.device_dispatch", device))
         inputs = list(inputs)
-        with self._mutex:
+        with self._serving():
             cs = self._subset_cset(target, frozenset(subset))
             if cs is None:
                 return [Response(target=target, results=[]) for _ in inputs]

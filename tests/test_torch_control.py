@@ -898,3 +898,55 @@ def test_host_oracle_freezes_no_inventory_for_an_inventory_free_policy():
     assert [r.msg for r in got.by_target[TARGET].results]
     assert client.audit().by_target[TARGET].results
     assert drv._frozen_inv == {}
+
+
+def test_host_oracle_yields_to_queued_fused_dispatches():
+    """The host oracle (the shadow oracle's Client.review_host) waits
+    while a fused dispatch is queued on the serving mutex, for at most
+    ORACLE_YIELD_S, so back-to-back oracle calls cannot hold admission
+    batches past their timeout; a dispatch counts while it waits."""
+    import threading
+
+    from gatekeeper_tpu_torch.constraint import AugmentedUnstructured
+    from gatekeeper_tpu_torch.constraint import torchdriver
+
+    drv = TorchDriver(device="cpu")
+    client = Backend(drv).new_client(K8sValidationTarget())
+    client.add_template(template("K8sRequiredLabels", REQ_LABELS))
+    client.add_constraint(constraint(
+        "K8sRequiredLabels", "need-owner", params={"labels": ["owner"]}))
+    review = AugmentedUnstructured(pod("x"))
+
+    # a dispatch blocked on the mutex is counted, and runs once released
+    done = threading.Event()
+    drv._mutex.acquire()
+    try:
+        t = threading.Thread(
+            target=lambda: (client.review_many([review]), done.set()))
+        t.start()
+        deadline = time.monotonic() + 10
+        while drv._fused_waiting != 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert drv._fused_waiting == 1
+    finally:
+        drv._mutex.release()
+    assert done.wait(30)
+    t.join(30)
+    assert drv._fused_waiting == 0
+
+    # the oracle waits while one is queued...
+    drv._fused_waiting = 1
+    timer = threading.Timer(0.3, lambda: setattr(drv, "_fused_waiting", 0))
+    timer.start()
+    t0 = time.monotonic()
+    assert client.review_host(review).by_target[TARGET].results
+    assert time.monotonic() - t0 >= 0.25
+    timer.join(5)
+    # ...and proceeds after ORACLE_YIELD_S if the queue never drains
+    drv._fused_waiting = 1
+    try:
+        t0 = time.monotonic()
+        client.review_host(review)
+        assert torchdriver.ORACLE_YIELD_S <= time.monotonic() - t0 < 10
+    finally:
+        drv._fused_waiting = 0
