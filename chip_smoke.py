@@ -60,14 +60,14 @@ Phases, one line each on stdout, in this order:
            after inventory, the mixed client's): verdict counts, fallback
            codes, analyzer_mismatches == 0, and any template whose route
            differs from the one the compiler alone gives it;
-  liveness 4 of the full phase's review batches of 256 with the IR
+  liveness 2 of the full phase's review batches of 256 with the IR
            liveness mask on and off: equal results; the token slots dropped, K2's
            [N, L, T] and the encode and dispatch seconds of both;
   profile  device-busy against wall seconds (torch.profiler, CUDA
            activity) for a second, warm-corpus audit sweep and one more
            review batch, after the counted run;
   webhook  the full phase's client behind WebhookServer(window_ms=2.0):
-           2,048 AdmissionReviews of new pods from 256 threads over HTTP
+           1,024 AdmissionReviews of new pods from 256 threads over HTTP
            keep-alive (the function's default adds 1,024 from 16 threads
            and 4,096 requests; cut for time, as in ingest and
            partitions); per load the request
@@ -93,7 +93,7 @@ Phases, one line each on stdout, in this order:
            launch, and 64 sampled responses equal the interpreter's;
   partitions  the same client behind WebhookServer(partitions=4,
            integrity=IntegrityPlane(), attributor=CostAttributor()):
-           1,024 requests from 256 callers, every answer equal to the
+           512 requests from 256 callers, every answer equal to the
            monolithic dispatch's and 64 to the interpreter's, no canary
            mismatch, K1-K4 launched by every partition; per partition the
            launches and the attributed against the measured dispatch
@@ -102,7 +102,7 @@ Phases, one line each on stdout, in this order:
            driver.device_dispatch[device=1] (three failed dispatches, the
            breaker opens, partition 1 re-homes, later answers fused);
   audit_churn  the audit controller at full width across cluster churn:
-           the full phase's client, its last 8 constraints swapped for join
+           the full phase's client, its last 4 constraints swapped for join
            constraints (the function's default swaps 20; cut for time);
            sweep 1 takes a full table upload, then 1,000 pods
            go and 1,000 new ones come with strings never interned, and
@@ -132,24 +132,43 @@ Phases, one line each on stdout, in this order:
            an apiserver stand-in in its own process (paged lists, watch
            streams, status writes) holding the 500 constraints, a Config
            syncing Pods and the 100,000 pods of make_pod with images drawn
-           from a 5,000-image catalogue; --audit-from-cache,
-           --no-integrity (the partitions phase runs that plane), TLS,
-           webhook, audit, status. Boot to Ready and to the first sweep,
-           whose violations equal the full phase's; 20
+           from a 5,000-image catalogue; --audit-from-cache, TLS,
+           webhook, audit, status, and the process defaults otherwise
+           (the integrity plane on, its shadow oracle in a process of its
+           own sampling 1 in 8 admissions). Boot to Ready and to the first
+           sweep, whose violations equal the full phase's; 20
            ConstraintPodStatus CRs and audit statuses against the full
            phase's Client.audit; 1,000 pods out and 1,000 in through the
-           stand-in and a sweep on the vocab-delta upload (K5); 4,096
-           AdmissionReviews over HTTPS from 256 callers (no failed,
-           degraded or fail-policy answer, 64 against the interpreter);
+           stand-in and a sweep on the vocab-delta upload (K5), its host
+           time sampled by function; 4,096 AdmissionReviews over HTTPS
+           from 256 callers (no failed, degraded or fail-policy answer,
+           none past the 10 s request timeout, no shadow divergence, 64
+           against the interpreter), with the oracle's sampled, evaluated,
+           dropped and stale counts, its evaluation seconds, the batches'
+           dispatch seconds with and without an evaluation beside them
+           and the full collections during the load;
+  mutation the same Runner serving /v1/mutate: 48 mutators
+           (mutation_docs: 16 Assign, 16 AssignMetadata, 16 ModifySet,
+           half with a labelSelector, a quarter with namespaces or
+           excludedNamespaces) applied through the stand-in and ingested
+           by the Runner's watches, one pair quarantined for a schema
+           conflict; 2,048 Pod CREATEs over HTTPS from 256 callers, every
+           patch equal to the port's host path (screen_host, apply,
+           json_patch), the screen matrices of the first 4 batches equal
+           screen_host row by row, no fail-open answer, one K1 launch per
+           batch, K1 bit for bit against its plain version on the
+           screen's inputs (live label and namespace selectors) with its
+           device time and bound on that shape;
   extdata  the same Runner: a localhost provider flagging 1% of the
            catalogue, a Provider CR and an error-gated image-verification
-           template and constraint through the stand-in. One sweep makes
-           exactly one fetch and its violations equal the pods with a
-           flagged image; two HTTPS loads of 1,024 from 256 callers make
+           template and constraint through the stand-in, at the provider's
+           default maxKeysPerRequest (512). One sweep fetches its keys in
+           ceil(keys / 512) requests and its violations equal the pods
+           with a flagged image; two HTTPS loads of 1,024 from 256 callers make
            at most one fetch per micro-batch, the second (cached keys)
            none; a cache-hit batch of 256 renders no pair of that kind on
-           the interpreter; past the TTL that batch refetches once and
-           the rows of images flagged meanwhile route back and violate;
+           the interpreter; past the TTL that batch refetches (ceil(keys /
+           512) requests) and the rows of images flagged meanwhile route back and violate;
   process  python -m gatekeeper_tpu_torch.run as a child against a
            stand-in with 1,000 pods x 50 constraints, in the process
            defaults (discovery audit, --audit-chunk-size 512): /readyz
@@ -193,6 +212,11 @@ build/parent (git archive):
 
     for t in build/parent . . build/parent; do
         python3 chip_smoke.py --full --tree $t; done
+
+    python3 chip_smoke.py --runner
+
+runs card, build and the runner phase alone on the process defaults
+(its first sweep held against itself, no full phase).
 
     python3 chip_smoke.py --probe [--tree DIR]
 
@@ -298,6 +322,7 @@ PATH_KERNELS = {
     "runner": ("match_matrix", "slab_gather", "egroup", "need_tail",
                "flush_deltas"),
     "extdata": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "mutation": ("match_matrix",),
 }
 
 # A two-array join in the shape of gatekeeper-library's
@@ -863,14 +888,17 @@ def _device_ms(fn, kernels=None, reps: int = 10) -> float:
     """Device ms per call (torch.profiler, CUDA activity): the summed
     execution time of the kernels named in `kernels` (each launched once
     per call; a profile missing one of their records is taken again), or
-    of all device activity when `kernels` is None. Host issue time does
-    not enter it."""
+    of all device activity when `kernels` is None (then two profiles must
+    record the same kernels, each a whole number of times per call, and
+    the larger sum is taken: a lost record only lowers a sum). Host issue
+    time does not enter it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    whole = []  # (kernel names, us) of the profiles with whole counts
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _window_head()
             for _ in range(reps):
@@ -880,14 +908,21 @@ def _device_ms(fn, kernels=None, reps: int = 10) -> float:
         seen = {}
         for e in prof.key_averages():
             name = _kernel_name(e)
-            if name == HEAD_KERNEL:
+            # host-side records (cudaLaunchKernel, ...) carry no device time
+            if name == HEAD_KERNEL or _device_time_us(e) <= 0.0:
                 continue
             seen[name] = seen.get(name, 0) + e.count
             if kernels is None or name in kernels:
                 us += _device_time_us(e)
-        short = [k for k in kernels or () if 0 < seen.get(k, 0) < reps]
-        if us > 0.0 and not short:
-            return us / 1e3 / reps
+        if kernels is not None:
+            short = [k for k in kernels if 0 < seen.get(k, 0) < reps]
+            if us > 0.0 and not short:
+                return us / 1e3 / reps
+        elif us > 0.0 and all(n % reps == 0 for n in seen.values()):
+            whole.append((frozenset(seen), us))
+            same = [u for names, u in whole if names == whole[-1][0]]
+            if len(same) >= 2:
+                return max(same) / 1e3 / reps
     raise AssertionError(
         f"profiler recorded {seen} for {kernels} over {reps} calls")
 
@@ -3916,6 +3951,12 @@ API_KINDS = (
      "providerpodstatuses", True),
     ("admissionregistration.k8s.io", "v1", "ValidatingWebhookConfiguration",
      "validatingwebhookconfigurations", False),
+    ("mutations.gatekeeper.sh", "v1alpha1", "Assign", "assign", False),
+    ("mutations.gatekeeper.sh", "v1alpha1", "AssignMetadata",
+     "assignmetadata", False),
+    ("mutations.gatekeeper.sh", "v1alpha1", "ModifySet", "modifyset", False),
+    ("status.gatekeeper.sh", "v1beta1", "MutatorPodStatus",
+     "mutatorpodstatuses", True),
 )
 
 
@@ -4374,20 +4415,26 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
     """The process wiring at full width: an ApiServer holding the smoke's
     policy, a Config that syncs Pods and n_pods pods whose images come
     from the 5,000-image catalogue; build_runner(build_parser()
-    .parse_args(...)) with --audit-from-cache, --no-integrity, TLS in a
-    temp --cert-dir, webhook, audit and status. Boot to Ready and to the first sweep;
-    the sweep's violations must equal the full phase's Client.audit
-    results on the same pods (`full_counts`, per constraint; the
-    catalogue changes no verdict), in total and for n_status sampled
-    constraints, whose ConstraintPodStatus CRs the ApiServer holds;
-    n_churn pods out and n_churn in through the ApiServer and a second
-    sweep on the vocab-delta upload (K5); then HTTPS load (n_requests from
-    `callers`), no failed, degraded or fail-policy answer, n_sample
-    answers against the interpreter. `api`: an ApiProcess already seeded
-    with these pods and constraints (main starts it early, so its seeding
-    overlaps earlier phases); `device` goes to build_runner (None: the
-    card; a CPU rehearsal passes "cpu"). -> (launches, state for
-    phase_extdata)."""
+    .parse_args(...)) with --audit-from-cache, TLS in a temp --cert-dir,
+    webhook, audit and status, and the process defaults otherwise: the
+    verdict-integrity plane on, its shadow oracle sampling 1 in 8
+    admissions. Boot to Ready
+    and to the first sweep; the sweep's violations must equal the full
+    phase's Client.audit results on the same pods (`full_counts`, per
+    constraint; the catalogue changes no verdict; None skips the check),
+    in total and for n_status sampled constraints, whose
+    ConstraintPodStatus CRs the ApiServer holds; n_churn pods out and
+    n_churn in through the ApiServer and a second sweep on the
+    vocab-delta upload (K5), where a StackSampler attributes the sweep's
+    host time; then HTTPS load (n_requests from `callers`), no failed,
+    degraded or fail-policy answer, none past the 10 s request timeout,
+    no shadow divergence, n_sample answers against the interpreter; the
+    load's full collections, the shadow oracle's evaluations and the
+    batches' dispatch seconds with and without an evaluation beside
+    them (ServingOverlap). `api`: an ApiProcess already seeded with these
+    pods and constraints (main starts it early, so its seeding overlaps
+    earlier phases); `device` goes to build_runner (None: the card; a CPU
+    rehearsal passes "cpu"). -> (launches, state for phase_extdata)."""
     import tempfile
 
     from gatekeeper_tpu_torch import run as runmod
@@ -4401,14 +4448,9 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
     seed_s = time.perf_counter() - t0
     _step("runner", "apiserver seeded", t0)
     work = tempfile.mkdtemp(prefix="gk-smoke-runner-")
-    # --no-integrity: with the verdict-integrity plane on (the default)
-    # its shadow oracle re-evaluates 1 in 8 admissions on the interpreter
-    # and held 256 HTTPS callers at 55-74 requests/s, p99 up to 9.2 s and
-    # single answers past 10 s against the 10 s request timeout; the
-    # partitions phase exercises that plane at full width
     args = runmod.build_parser().parse_args([
         "--kube-url", api.url, "--port", "0", "--health-addr-port", "0",
-        "--audit-from-cache", "--audit-interval", "3600", "--no-integrity",
+        "--audit-from-cache", "--audit-interval", "3600",
         "--cert-dir", os.path.join(work, "certs"), "--log-level", "error",
     ])
     rec.install()
@@ -4437,6 +4479,9 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
                  "phase_seconds": dict(drv.stats.get("phase_seconds", {})),
                  "upload": _upload(drv.stats)}
         report = runner.audit.sink.latest
+        if full_counts is None:  # a probe: no full phase ran before
+            full_counts = {k: st.total_violations
+                           for k, st in report.statuses.items()}
         if report.total_violations != sum(full_counts.values()):
             raise AssertionError(
                 f"runner: sweep found {report.total_violations} violations, "
@@ -4467,19 +4512,32 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
                   "the churn to sync")
         t_c = time.perf_counter()
         _step("runner", "churn synced", t_boot)
-        churn_report = runner.audit.audit()
+        import threading
+
+        sampler = StackSampler(threading.get_ident())
+        try:
+            churn_report = runner.audit.audit()
+        finally:
+            churn_profile = sampler.close()
         churn = {"seconds": time.perf_counter() - t_c,
+                 "host_profile": churn_profile,
                  "phase_seconds": dict(drv.stats.get("phase_seconds", {})),
                  "upload": _upload(drv.stats),
                  "violations": churn_report.total_violations}
+        print(json.dumps({"phase": "runner", "step": "churn swept",
+                          "churn": churn}, default=float), flush=True)
         if not churn["upload"].get("delta_flushes"):
             raise AssertionError(
                 f"runner: the churn sweep took no delta upload: "
                 f"{churn['upload']}")
-        _step("runner", "churn swept", t_boot)
         # HTTPS admission from `callers` clients
+        import gc
+
+        plane = runner.integrity
         posts, requests = webhook_posts(7, n_requests)
         b0 = runner.webhook.batcher.batches_dispatched
+        shadow0 = plane.snapshot()["shadow"]
+        overlap = ServingOverlap(runner.webhook.batcher, plane)
         pauses = GcPauses()
         try:
             bodies, lat, wall = _drive_http(
@@ -4487,17 +4545,42 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
                 ssl_ctx=_https_context(runner.webhook.rotator))
         finally:
             gc_https = pauses.close()
+            serving = overlap.close()
         batches = runner.webhook.batcher.batches_dispatched - b0
         _step("runner", "https load", t_boot)
+
+        # let the oracle work through what the load sampled
+        def settled(sh):
+            return sh["evaluated"] + sh["skipped_stale"] + \
+                sh["dropped"] >= sh["sampled"]
+
+        deadline = time.monotonic() + 120
+        while not settled(plane.snapshot()["shadow"]) and \
+                time.monotonic() < deadline:
+            time.sleep(0.1)
+        shadow = {k: v - shadow0.get(k, 0)
+                  if isinstance(v, (int, float)) and k != "sample_n" else v
+                  for k, v in plane.snapshot()["shadow"].items()}
+        https = {"requests": n_requests, "callers": callers,
+                 "gc_threshold": list(gc.get_threshold()),
+                 "gc_frozen": gc.get_freeze_count(),
+                 "wall_s": wall, "rps": n_requests / wall,
+                 "p50_s": _quantile(lat, 0.5),
+                 "p99_s": _quantile(lat, 0.99), "max_s": max(lat),
+                 **_first_request_split(lat, callers),
+                 "batches": batches, "gc_collections": gc_https,
+                 "shadow": shadow, "serving": serving}
+        print(json.dumps({"phase": "runner", "step": "https load",
+                          "https": https}, default=float), flush=True)
         _check_served("runner", runner.webhook, runner.metrics, client,
                       requests)
         unavailable = sum(_unavailable(b) for b in bodies)
-        if unavailable:
+        late = sum(t > runner.webhook.request_timeout for t in lat)
+        if unavailable or late or shadow.get("divergences"):
             raise AssertionError(
-                f"runner: {unavailable} of {n_requests} answers were the "
-                f"fail policy's (p50 {_quantile(lat, 0.5):.3f} s, p99 "
-                f"{_quantile(lat, 0.99):.3f} s, max {max(lat):.3f} s, "
-                f"{batches} batches, full collections {gc_https})")
+                f"runner: {unavailable} of {n_requests} answers were "
+                f"the fail policy's, {late} came past the request "
+                f"timeout, {shadow.get('divergences')} shadow divergences")
         oracle = _oracle(client)
         step = max(1, n_requests // n_sample)
         t_s = time.perf_counter()
@@ -4524,13 +4607,8 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
         "boot_to_ready_s": ready_s, "boot_to_first_sweep_s": warm_s,
         "first_sweep": sweep, "violations": report.total_violations,
         "status_checked": len(sample_keys),
-        "https": {"requests": n_requests, "callers": callers,
-                  "wall_s": wall, "rps": n_requests / wall,
-                  "p50_s": _quantile(lat, 0.5), "p99_s": _quantile(lat, 0.99),
-                  "max_s": max(lat), "batches": batches,
-                  "gc_full_collections": gc_https,
-                  "sample_checked": len(range(0, n_requests, step)),
-                  "sample_seconds": sample_s},
+        "https": dict(https, sample_checked=len(range(0, n_requests, step)),
+                      sample_seconds=sample_s),
         "churn": churn, "launches": launches,
         "apiserver_requests": api.requests(),
         "seconds": time.perf_counter() - t0,
@@ -4538,31 +4616,420 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
     return launches, state
 
 
+
+# -- mutation: /v1/mutate on the Runner (config #5) --------------------------
+
+POD_APPLY_TO = [{"groups": [""], "versions": ["v1"], "kinds": ["Pod"]}]
+
+# (location, value, pathTests/assignIf parameters) of the 16 Assign
+# mutators; the last two are the pair whose locations disagree in schema
+ASSIGN_SPECS = (
+    ("spec.containers[name: *].imagePullPolicy", "Always", None),
+    ("spec.containers[name: *].securityContext.allowPrivilegeEscalation",
+     False, None),
+    ("spec.containers[name: *].securityContext.readOnlyRootFilesystem",
+     True, None),
+    ("spec.containers[name: *].securityContext.runAsNonRoot", True, None),
+    ("spec.containers[name: *].securityContext.capabilities.drop", ["ALL"],
+     None),
+    ("spec.securityContext.seccompProfile.type", "RuntimeDefault", None),
+    ("spec.securityContext.fsGroup", 2000, None),
+    ("spec.priorityClassName", "standard", {"pathTests": [
+        {"subPath": "spec.priorityClassName", "condition": "MustNotExist"}]}),
+    ("spec.containers[name: c0].terminationMessagePolicy",
+     "FallbackToLogsOnError", None),
+    ("spec.dnsPolicy", "ClusterFirst", {"assignIf": {"notIn": ["Default"]}}),
+    ("spec.enableServiceLinks", False, None),
+    ("spec.automountServiceAccountToken", False, None),
+    ("spec.terminationGracePeriodSeconds", 30, {"assignIf": {"in": [None]}}),
+    ("spec.securityContext.runAsUser", 1000, {"pathTests": [
+        {"subPath": "spec.volumes", "condition": "MustExist"}]}),
+    ("spec.tolerations.key", "dedicated", None),
+    ("spec.tolerations[key: dedicated].effect", "NoSchedule", None),
+)
+META_KEYS = ("owner", "cost-center", "team", "contact", "tier", "env",
+             "data-class", "budget")
+
+
+def _mutation_match(i: int):
+    """Half of the mutators carry a labelSelector over labels make_pod
+    emits (matchLabels; matchExpressions In, NotIn, Exists), a quarter
+    namespaces or excludedNamespaces."""
+    match = {}
+    if i % 2 == 0:
+        sel = [
+            {"matchLabels": {"app": f"svc{i % 17}"}},
+            {"matchExpressions": [{"key": "app", "operator": "In",
+                                   "values": [f"svc{i % 17}",
+                                              f"svc{(i + 5) % 17}"]}]},
+            {"matchExpressions": [{"key": "owner", "operator": "NotIn",
+                                   "values": [f"team{i % 5}"]}]},
+            {"matchExpressions": [{"key": f"k{i % 4}",
+                                   "operator": "Exists"}]},
+        ][(i // 2) % 4]
+        match["labelSelector"] = sel
+    if i % 4 == 1:
+        key = "namespaces" if i % 8 == 1 else "excludedNamespaces"
+        match[key] = [f"ns{(i + j) % 23}" for j in range(6)]
+    if i % 3 == 0:
+        match["kinds"] = [{"apiGroups": [""], "kinds": ["Pod"]}]
+    return match
+
+
+def mutation_docs():
+    """48 mutators modeled on docs/mutation.md: 16 Assign (container and
+    pod securityContext fields, imagePullPolicy; some with pathTests or
+    assignIf), 16 AssignMetadata (owner, cost-center and other labels and
+    annotations), 16 ModifySet (container args); two of the Assign
+    mutators disagree in schema (spec.tolerations as an object and as a
+    keyed list), so both are quarantined."""
+    docs = []
+    for i, (loc, value, params) in enumerate(ASSIGN_SPECS):
+        docs.append({"apiVersion": "mutations.gatekeeper.sh/v1alpha1",
+                     "kind": "Assign", "metadata": {"name": f"assign-{i:02d}"},
+                     "spec": {"applyTo": POD_APPLY_TO, "location": loc,
+                              "match": _mutation_match(i),
+                              "parameters": {"assign": {"value": value},
+                                             **(params or {})}}})
+    for i in range(16):
+        field = "labels" if i < 8 else "annotations"
+        docs.append({"apiVersion": "mutations.gatekeeper.sh/v1alpha1",
+                     "kind": "AssignMetadata",
+                     "metadata": {"name": f"meta-{i:02d}"},
+                     "spec": {"location": f"metadata.{field}."
+                                          f"{META_KEYS[i % 8]}",
+                              "match": _mutation_match(i + 16),
+                              "parameters": {"assign": {
+                                  "value": f"{META_KEYS[i % 8]}-{i}"}}}})
+    for i in range(16):
+        prune = i >= 14  # values no merge adds
+        docs.append({"apiVersion": "mutations.gatekeeper.sh/v1alpha1",
+                     "kind": "ModifySet",
+                     "metadata": {"name": f"args-{i:02d}"},
+                     "spec": {"applyTo": POD_APPLY_TO,
+                              "location": "spec.containers[name: *].args",
+                              "match": _mutation_match(i + 32),
+                              "parameters": {
+                                  "operation": "prune" if prune else "merge",
+                                  "values": {"fromList": [
+                                      f"--debug-{i}" if prune
+                                      else f"--flag-{i}=on"]}}}})
+    return docs
+
+
+def phase_mutation(rec, state, n_requests: int = 2048, callers: int = 256,
+                   n_check_batches: int = 4):
+    """/v1/mutate on the runner phase's Runner at config #5: the 48
+    mutators of mutation_docs() applied through the ApiServer and
+    ingested by the Runner's watches (the conflicting pair quarantined,
+    its MutatorPodStatus errors); n_requests Pod CREATEs of make_pod over
+    HTTPS from `callers` clients. Every patch must equal the port's host
+    path (screen_host, apply, json_patch) on the same review, the screen
+    matrices of the first n_check_batches batches equal screen_host row
+    by row, no answer fail open or come past the request timeout, one K1
+    launch per batch, and K1 held bit for bit against its plain version
+    on each recorded screen input (live label and namespace selectors),
+    with its device time, the plain version's and its bound.
+    -> (launches, the K1 figures of the screen's shape)."""
+    import base64
+
+    import torch
+    from gatekeeper_tpu_torch.kernels import ops
+    from gatekeeper_tpu_torch.mutation import json_patch
+
+    t0 = time.perf_counter()
+    api, runner = state["api"], state["runner"]
+    system = runner.mutation_system
+    docs = mutation_docs()
+    for d in docs:
+        api.put(d)
+    _wait_for(lambda: system.count() == len(docs), 120,
+              "the mutators to ingest")
+    conflicts = system.conflicts()
+    quarantined = sorted(conflicts)
+    want_q = ["Assign/assign-14", "Assign/assign-15"]
+    statuses = {o["status"]["mutatorUID"]: o["status"] for o in api.objects(
+        "status.gatekeeper.sh", "v1beta1", "MutatorPodStatus")}
+    # the status of the mutator whose ingest brought the conflict names
+    # it (the reference's MutatorController publishes the ingested one)
+    if quarantined != want_q or not any(
+            statuses.get(k, {}).get("enforced") is False and
+            statuses[k]["errors"][0]["code"] == "schema_conflict"
+            for k in want_q) or any(m.id in want_q for m in system.ordered()):
+        raise AssertionError(f"mutation: quarantine {conflicts}, statuses "
+                             f"{[statuses.get(k) for k in want_q]}")
+    active = system.ordered()
+    # the screen's inputs and matrices of the first batches
+    screens = []
+    inner = system.screen
+
+    def recorded(reviews, *a, **kw):
+        muts, mat = inner(reviews, *a, **kw)
+        if len(screens) < n_check_batches:
+            screens.append((list(reviews), [m.id for m in muts], mat.copy()))
+        return muts, mat
+
+    system.screen = recorded
+    k1_inputs = []  # the first batches' and the widest batch's
+    k1 = ops.match_matrix
+
+    def k1_kept(ms, fb):
+        n = fb["group_id"].shape[0]
+        if len(k1_inputs) <= n_check_batches or \
+                n > k1_inputs[-1][1]["group_id"].shape[0]:
+            kept = (ms, {k: v.clone() for k, v in fb.items()})
+            if len(k1_inputs) > n_check_batches:
+                k1_inputs[-1] = kept
+            else:
+                k1_inputs.append(kept)
+        return k1(ms, fb)
+
+    reqs = []
+    for j in range(n_requests):
+        pod = make_pod(5_000_000 + j, name=f"mut-{j}")
+        reqs.append(admission_request(pod, f"mut-{j}"))
+    posts = [("/v1/mutate", _envelope(r)) for r in reqs]
+    mb = runner.webhook.mutate_batcher
+    b0, f0 = mb.batches_dispatched, mb.batch_failures
+    d0 = system.screen_dispatches
+    ops.reset_launches()
+    ops.match_matrix = k1_kept
+    try:
+        bodies, lat, wall = _drive_http(
+            runner.webhook.port, posts, callers,
+            ssl_ctx=_https_context(runner.webhook.rotator))
+    finally:
+        ops.match_matrix = k1
+        del system.screen
+    launches = dict(ops.LAUNCHES)
+    batches = mb.batches_dispatched - b0
+    screen_n = system.screen_dispatches - d0
+    # every answer against the host path on the same review
+    t_c = time.perf_counter()
+    mutated = fail_open = 0
+    for req, body in zip(reqs, bodies):
+        resp = body["response"]
+        if _unavailable(body) or not resp["allowed"]:
+            fail_open += 1
+            continue
+        review = dict(req)
+        ns_obj = runner._get_namespace(req["namespace"])
+        if ns_obj is not None:
+            review["_unstable"] = {"namespace": ns_obj}
+        muts, mat = system.screen_host([review])
+        chosen = [m for j, m in enumerate(muts) if mat[j, 0]]
+        want = []
+        if chosen:
+            after, _ = system.apply(req["object"], review, chosen)
+            want = json_patch(req["object"], after)
+        got = json.loads(base64.b64decode(resp["patch"])) \
+            if "patch" in resp else []
+        if got != want:
+            raise AssertionError(
+                f"mutation: the patch of {req['uid']} differs from the "
+                f"host path: {got} != {want}")
+        mutated += bool(got)
+    rows_checked = 0
+    for reviews, ids, mat in screens:
+        muts_h, mat_h = system.screen_host(reviews)
+        if ids != [m.id for m in muts_h] or not (mat == mat_h).all():
+            raise AssertionError("mutation: a screen matrix differs from "
+                                 "screen_host")
+        rows_checked += mat.shape[0]
+    check_s = time.perf_counter() - t_c
+    # K1 on the screen's own inputs: bit for bit against its plain version
+    k1_row = None
+    for ms, fb in k1_inputs:
+        out_k, out_p = ops.match_matrix(ms, fb), ops.match_matrix_plain(ms, fb)
+        if out_k.dtype != out_p.dtype or not torch.equal(out_k, out_p):
+            raise AssertionError("mutation: K1 differs from its plain version")
+    if k1_inputs and k1_inputs[0][0]["kind_rows"].is_cuda:
+        ms, fb = max(k1_inputs, key=lambda a: a[1]["group_id"].shape[0])
+        out = ops.match_matrix(ms, fb)
+        bound_ms, bound_by, bytes_ms, ops_ms = _bound(
+            "match_matrix", (ms, fb), out)
+        k1_row = {"shape": list(out.shape), "launches": launches.get(
+            "match_matrix", 0), "max_abs_err": 0.0,
+            "ms": _device_ms(lambda: ops.match_matrix(ms, fb),
+                             KERNEL_FUNCS["match_matrix"]),
+            "host_ms": _time_ms(lambda: ops.match_matrix(ms, fb)),
+            "plain_ms": _device_ms(lambda: ops.match_matrix_plain(ms, fb),
+                                   reps=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "library_ms": None, "inputs_checked": len(k1_inputs),
+            "selector_reads": int(ops.match_flags(
+                {k: v.cpu().numpy() for k, v in ms.items()})[1])}
+    live = sum("labelSelector" in (m.match or {}) for m in active)
+    out = {
+        "phase": "mutation", "mutators": len(docs), "active": len(active),
+        "with_label_selector": live, "quarantined": quarantined,
+        "quarantine_statuses": [statuses.get(k) for k in want_q],
+        "requests": n_requests, "callers": callers, "wall_s": wall,
+        "rps": n_requests / wall, "p50_s": _quantile(lat, 0.5),
+        "p99_s": _quantile(lat, 0.99), "max_s": max(lat),
+        **_first_request_split(lat, callers),
+        "batches": batches, "occupancy": n_requests / max(1, batches),
+        "screen_dispatches": screen_n, "mutated": mutated,
+        "fail_open": fail_open, "batch_failures": mb.batch_failures - f0,
+        "screen_rows_checked": rows_checked, "check_seconds": check_s,
+        "launches": launches, "k1": k1_row,
+        "seconds": time.perf_counter() - t0,
+    }
+    print(json.dumps(out, default=float), flush=True)
+    late = sum(t > runner.webhook.request_timeout for t in lat)
+    if fail_open or late or mb.batch_failures - f0 or not mutated:
+        raise AssertionError(f"mutation: {fail_open} answers fail open or "
+                             f"errors, {late} past the timeout, "
+                             f"{mb.batch_failures - f0} failed batches")
+    if live < 8 or len(screens) < n_check_batches:
+        raise AssertionError("mutation: too few live selectors or screens")
+    on_card = runner.client._driver.device.type == "cuda"
+    if on_card and (launches.get("match_matrix", 0) != screen_n
+                    or k1_row is None):
+        raise AssertionError(
+            f"mutation: {launches.get('match_matrix')} K1 launches for "
+            f"{screen_n} screens")
+    return launches, k1_row
+
+
 class GcPauses:
-    """Wall seconds of each full (generation 2) CPython collection while
-    installed: the stalls a request waits through beside its batch."""
+    """Wall seconds of each CPython collection while installed, by
+    generation: the stalls a request waits through beside its batch
+    (count, sum_s and max_s are the full, generation-2 ones)."""
 
     def __init__(self):
         import gc
 
         self._gc = gc
-        self.pauses = []
+        self.pauses = {0: [], 1: [], 2: []}
         self._t = None
         gc.callbacks.append(self._cb)
 
     def _cb(self, phase, info):
-        if info["generation"] != 2:
-            return
         if phase == "start":
             self._t = time.perf_counter()
         elif self._t is not None:
-            self.pauses.append(time.perf_counter() - self._t)
+            self.pauses[info["generation"]].append(
+                time.perf_counter() - self._t)
             self._t = None
 
     def close(self):
         self._gc.callbacks.remove(self._cb)
-        return {"count": len(self.pauses), "sum_s": sum(self.pauses),
-                "max_s": max(self.pauses, default=0.0)}
+        full = self.pauses[2]
+        return {"count": len(full), "sum_s": sum(full),
+                "max_s": max(full, default=0.0),
+                "young": {str(g): {"count": len(p), "sum_s": sum(p)}
+                          for g, p in self.pauses.items() if g < 2}}
+
+
+class StackSampler:
+    """Samples one thread's Python stack every `interval` seconds from a
+    thread of its own while installed: where a stretch of host time went,
+    as shares of the samples by function (inclusive: anywhere on the
+    stack; leaf: the innermost frame)."""
+
+    def __init__(self, thread_id: int, interval: float = 0.005):
+        import threading
+
+        self.tid, self.interval = thread_id, interval
+        self.samples = 0
+        self.inclusive, self.leaf = {}, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _name(code) -> str:
+        path = code.co_filename
+        short = path.split("gatekeeper_tpu_torch" + os.sep, 1)[-1] \
+            if "gatekeeper_tpu_torch" in path else os.path.basename(path)
+        return f"{short}:{code.co_name}"
+
+    def _run(self):
+        while not self._stop.wait(self.interval):
+            frame = sys._current_frames().get(self.tid)
+            if frame is None:
+                continue
+            self.samples += 1
+            self.leaf[self._name(frame.f_code)] = \
+                self.leaf.get(self._name(frame.f_code), 0) + 1
+            seen = set()
+            while frame is not None:
+                name = self._name(frame.f_code)
+                if name not in seen:
+                    seen.add(name)
+                    self.inclusive[name] = self.inclusive.get(name, 0) + 1
+                frame = frame.f_back
+
+    def close(self, top: int = 14) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        n = max(1, self.samples)
+
+        def head(d):
+            return [[k, round(v / n, 4)] for k, v in
+                    sorted(d.items(), key=lambda kv: -kv[1])[:top]]
+
+        return {"samples": self.samples, "interval_s": self.interval,
+                "inclusive": head(self.inclusive), "leaf": head(self.leaf)}
+
+
+class ServingOverlap:
+    """Wall intervals (perf_counter, one clock for the processes of a
+    host) of a webhook batcher's dispatches while installed, and of the
+    integrity plane's shadow-oracle evaluations beside them
+    (`plane.shadow_intervals`): how long a batch takes from dispatch to
+    resolve when an oracle evaluation overlaps it, against when none
+    does."""
+
+    def __init__(self, batcher, plane=None):
+        self.batcher, self.plane = batcher, plane
+        self.batches = []
+        inner = batcher._dispatch
+
+        def timed_dispatch(batch):
+            t = time.perf_counter()
+            try:
+                return inner(batch)
+            finally:
+                self.batches.append((t, time.perf_counter(), len(batch)))
+
+        batcher._dispatch = timed_dispatch
+
+    def close(self) -> dict:
+        self.batcher.__dict__.pop("_dispatch", None)
+        t0 = min((b[0] for b in self.batches), default=0.0)
+        evals = sorted(iv for iv in list(getattr(
+            self.plane, "shadow_intervals", ())) if iv[1] >= t0)
+
+        def stats(xs):
+            xs = sorted(xs)
+            return {"n": len(xs), "sum_s": sum(xs),
+                    "p50_s": _quantile(xs, 0.5) if xs else None,
+                    "p99_s": _quantile(xs, 0.99) if xs else None,
+                    "max_s": max(xs, default=None)}
+
+        over, clear = [], []
+        for t0, t1, _ in self.batches:
+            hit = any(e0 < t1 and e1 > t0 for e0, e1 in evals)
+            (over if hit else clear).append(t1 - t0)
+        return {"oracle_evals": stats([e1 - e0 for e0, e1 in evals]),
+                "dispatch_overlapping": stats(over),
+                "dispatch_clear": stats(clear)}
+
+
+def _first_request_split(lat, callers: int) -> dict:
+    """p50/p99 of each connection's first request (which carries its TLS
+    handshake and waits for the listener to accept it) and of the rest;
+    _drive_http's worker k sends requests k, k + callers, ..."""
+    first, rest = lat[:callers], lat[callers:]
+    out = {"first_p50_s": _quantile(first, 0.5),
+           "first_p99_s": _quantile(first, 0.99)}
+    if rest:
+        out.update(later_p50_s=_quantile(rest, 0.5),
+                   later_p99_s=_quantile(rest, 0.99))
+    return out
 
 
 def _step(phase: str, step: str, since: float) -> None:
@@ -4667,16 +5134,18 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
     """External data on the runner phase's Runner: a localhost StubProvider
     that flags flag_share of the 5,000 catalogue images; a Provider CR and
     an error-gated image-verification template and constraint applied
-    through the ApiServer (ProviderController, TemplateController). One
-    sweep makes exactly one fetch, its violations equal the pods with a
+    through the ApiServer (ProviderController, TemplateController), at the
+    provider's default maxKeysPerRequest (512). One sweep fetches its keys
+    in ceil(keys / 512) requests, its violations equal the pods with a
     flagged image; two loads of n_requests AdmissionReviews over HTTPS
     from `callers` clients, micro-batched by the webhook, make at most one
     fetch per batch, the second (only images the sweep fetched) none; a
     review_many of `batch` clean pods renders no pair of the
     external-data kind on the interpreter; the provider then flags some of
     its images: inside the TTL the batch still passes without a fetch,
-    past it the batch refetches once and its rows with those images route
-    back to the interpreter and violate. -> launches."""
+    past it the batch refetches (ceil(keys / 512) requests) and its rows
+    with those images route back to the interpreter and violate.
+    -> launches."""
     import numpy as np
 
     from gatekeeper_tpu_torch.kernels import ops
@@ -4697,9 +5166,7 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
                  "kind": "Provider", "metadata": {"name": EXT_PROVIDER},
                  "spec": {"url": stub.url, "timeout": 30,
                           "failurePolicy": "Fail", "cacheTTLSeconds": 600,
-                          "negativeCacheTTLSeconds": 600,
-                          # one request carries a sweep's every key
-                          "maxKeysPerRequest": 16384}})
+                          "negativeCacheTTLSeconds": 600}})
         api.put({"apiVersion": "templates.gatekeeper.sh/v1beta1",
                  "kind": "ConstraintTemplate",
                  "metadata": {"name": EXT_KIND.lower()},
@@ -4736,10 +5203,16 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
             TARGET, drv._corpus[TARGET], feature)).sum())
         if fetches.since(f0):
             raise AssertionError("extdata: the bits of a warm sweep fetched")
-        if first["fetches"] != 1 or first["violations"] != want:
+        # the provider's default maxKeysPerRequest: one epoch's keys go
+        # out in ceil(keys / max_keys) requests
+        max_keys = runner.external_data.get(EXT_PROVIDER).max_keys
+        per_sweep = -(-first["keys"] // max_keys)
+        first["max_keys"] = max_keys
+        if first["fetches"] != per_sweep or first["violations"] != want:
             raise AssertionError(
                 f"extdata: sweep made {first['fetches']} fetches and "
-                f"{first['violations']} violations, want 1 and {want}")
+                f"{first['violations']} violations, want {per_sweep} and "
+                f"{want}")
         # micro-batches over HTTPS, two loads from `callers` clients:
         # the first also carries images the provider never saw, the
         # second only images the sweep fetched
@@ -4855,8 +5328,8 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
                "inside_fetches": inside_fetches, "past_ttl": after,
                "past_fetches": len(after_fetches),
                "past_keys": sum(after_fetches), "want": want2}
-        if inside or inside_fetches or len(after_fetches) != 1 or \
-                after != want2 or not want2:
+        if inside or inside_fetches or after != want2 or not want2 or \
+                len(after_fetches) != -(-sum(after_fetches) // max_keys):
             raise AssertionError(f"extdata: TTL: {ttl}")
         launches = dict(ops.LAUNCHES)
     finally:
@@ -4994,8 +5467,10 @@ def phase_process(n_pods: int = 1000, n_constraints: int = 50,
     }), flush=True)
 
 
-def phase_kernels(rec, launches):
-    """-> the kernel table rows. `launches`: {path: {kernel: count}}."""
+def phase_kernels(rec, launches, extra=None):
+    """-> the kernel table rows. `launches`: {path: {kernel: count}};
+    `extra`: {kernel: fields added to its row} (K1's figures on the
+    mutation screen's shape, measured by phase_mutation)."""
     import torch
     from gatekeeper_tpu_torch.kernels import ops
 
@@ -5063,6 +5538,7 @@ def phase_kernels(rec, launches):
             "timed_shape": [list(out_k.shape), str(out_k.dtype), str(key)],
             "variants_checked": len(calls),
         })
+        rows[-1].update((extra or {}).get(name, {}))
         if name == "need_tail":  # the timed input's n_hot and pair counts
             rows[-1]["n_hot_sc_si"] = out_k[-3:].tolist()
         if name == "flush_deltas":  # the staging's host-to-device copy
@@ -5520,6 +5996,18 @@ def main() -> int:
         phase_full_alone(sys.argv[sys.argv.index("--tree") + 1]
                          if "--tree" in sys.argv else None)
         return 0
+    if "--runner" in sys.argv:
+        # the runner phase alone on the process defaults (its first
+        # sweep's violations are not held against a full phase)
+        sys.path.insert(0, ROOT)
+        phase_card()
+        api = ApiProcess(100_000, 500, catalogue=True)
+        phase_build()
+        from gatekeeper_tpu_torch.kernels import ops
+
+        _, state = phase_runner(Recorder(ops), None, api=api)
+        _stop_runner(state)
+        return 0
     if not os.path.isdir(os.path.join(ROOT, "gatekeeper_tpu_torch")):
         print("chip_smoke: gatekeeper_tpu_torch not found beside this "
               "script", file=sys.stderr)
@@ -5541,16 +6029,16 @@ def main() -> int:
     del port, ref, drv
     rec, launches_full, client, drv, full_counts = phase_full("cuda")
     phase_analysis("full", client, drv)
-    # the depth of these four phases is cut (fewer batches and requests,
-    # no second load; widths and callers kept) so that the process phases
-    # below fit the smoke's time limit
-    launches_live = phase_liveness(client, drv, rec, n_batches=4)
+    # the depth of these five phases is cut (fewer batches, requests and
+    # join constraints, no second load; widths and callers kept) so that
+    # the process phases below fit the smoke's time limit
+    launches_live = phase_liveness(client, drv, rec, n_batches=2)
     phase_profile(client, drv)
-    launches_webhook = phase_webhook(client, drv, loads=((2048, 256),))
+    launches_webhook = phase_webhook(client, drv, loads=((1024, 256),))
     launches_ingest = phase_ingest(client, drv, framed=((1024, 256, 16),),
                                    bridged=((1024, 256, 10_000),))
-    launches_part = phase_partitions(client, drv, rec, n=1024)
-    launches_churn = phase_audit_churn(client, drv, rec, n_join=8)
+    launches_part = phase_partitions(client, drv, rec, n=512)
+    launches_churn = phase_audit_churn(client, drv, rec, n_join=4)
     del client, drv  # the pod-only cluster; the mixed one comes next
     torch.cuda.empty_cache()
     phase_inventory_parity("cuda", n_batches=2)
@@ -5561,6 +6049,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_runner, state = phase_runner(rec, full_counts, api=runner_api)
     try:
+        launches_mut, k1_mutation = phase_mutation(rec, state)
         launches_ext = phase_extdata(rec, state)
     finally:
         _stop_runner(state)
@@ -5576,7 +6065,9 @@ def main() -> int:
               "ingest": launches_ingest, "partitions": launches_part,
               "audit_churn": launches_churn,
               "inventory": launches_inv, "full_output": launches_out,
-              "runner": launches_runner, "extdata": launches_ext}
+              "runner": launches_runner, "mutation": launches_mut,
+              "extdata": launches_ext},
+        extra={"match_matrix": {"mutation_screen": k1_mutation}},
     )
     phase_variants()
     print(json.dumps({"kernels": rows}), flush=True)

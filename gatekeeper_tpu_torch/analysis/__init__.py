@@ -1,7 +1,7 @@
 # Copied from gatekeeper_tpu/analysis/__init__.py; only these edits differ.
 # Edit: the docstring names what this package leaves out: the offline CLI
-# (`cli.py`, `__main__.py`), the canary gate and the corpus plane
-# (`canarygate.py`, `corpus.py`) and the JAX lint (`jitlint.py`).
+# (`cli.py`, `__main__.py`), the canary gate (`canarygate.py`) and the JAX
+# lint (`jitlint.py`).
 """Static vectorizability analysis for ConstraintTemplate Rego.
 
 Public surface:
@@ -22,9 +22,12 @@ and feature liveness over the compiled program IR, with stable
 `GK-P01x` codes, and the driver-side liveness masking consumed by
 `constraint/torchdriver.py`.
 
+The corpus plane lives in `corpus.py`: whole-corpus diagnostics over
+templates, constraints, mutators and providers, and the provably-dead
+constraint keys the partition planner prunes (`CorpusPlane`).
+
 Not part of this package: the offline CLI (`cli.py`), the canary gate
-(`canarygate.py`), the corpus plane (`corpus.py`, which needs the
-mutation package) and the JAX jit lint (`jitlint.py`).
+(`canarygate.py`) and the JAX jit lint (`jitlint.py`).
 """
 
 from .analyzer import Analyzer, analyze_modules, analyze_template  # noqa: F401

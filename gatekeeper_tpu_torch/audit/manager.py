@@ -1,4 +1,7 @@
-# Copied from gatekeeper_tpu/audit/manager.py; unchanged.
+# Copied from gatekeeper_tpu/audit/manager.py; only this edit differs.
+# Edit: with `freeze_after_sweep` set (the Runner sets it), each completed
+# sweep ends with gc.freeze(), which moves the corpus it built out of the
+# cyclic collector's reach.
 """Audit sweep manager.
 
 Mirrors the behavioral contract of pkg/audit/manager.go:
@@ -151,6 +154,7 @@ class AuditManager:
         # set after the first completed sweep: the audit path is warm
         # (kernels compiled, corpus encoded+staged, render caches primed)
         self.warmed = threading.Event()
+        self.freeze_after_sweep = False
         self.client = client
         self.target = target
         self.audit_from_cache = audit_from_cache
@@ -200,7 +204,12 @@ class AuditManager:
             self.tracer, "audit_sweep", audit_id=timestamp,
             from_cache=bool(self.audit_from_cache or self.cluster is None),
         ) as root:
-            return self._audit_once(t0, timestamp, log, root)
+            report = self._audit_once(t0, timestamp, log, root)
+        if self.freeze_after_sweep:
+            import gc
+
+            gc.freeze()
+        return report
 
     def _audit_once(self, t0, timestamp, log, root) -> AuditReport:
         from ..obs import start_span

@@ -1,5 +1,5 @@
 """Control plane: state ingestion, readiness, process runtime (a copy of
-gatekeeper_tpu/control without the mutation and fleet planes).
+gatekeeper_tpu/control without the fleet plane).
 
 The reference's equivalents live under pkg/controller/, pkg/watch/,
 pkg/readiness/, and main.go; here the same architecture runs against an
@@ -30,6 +30,8 @@ from .kubecluster import KubeCluster, KubeError
 from .watch import Registrar, WatchManager
 from .controllers import (
     CONFIG_GVK,
+    MUTATOR_GVKS,
+    MutatorController,
     PROVIDER_GVK,
     TEMPLATE_GVK,
     ConfigController,
@@ -55,7 +57,8 @@ __all__ = [
     "ADDED", "ALL_OPERATIONS", "CONFIG_GVK", "ConfigController",
     "ConstraintController", "ControllerSwitch", "DELETED", "Event",
     "EventSource", "Excluder", "FakeCluster", "GVK", "KubeCluster",
-    "KubeError", "MODIFIED", "OPERATION_AUDIT", "OPERATION_STATUS",
+    "KubeError", "MODIFIED", "MUTATOR_GVKS", "MutatorController",
+    "OPERATION_AUDIT", "OPERATION_STATUS",
     "OPERATION_WEBHOOK", "PROCESS_AUDIT", "PROCESS_STAR", "PROCESS_SYNC",
     "PROCESS_WEBHOOK", "PROVIDER_GVK", "ProviderController",
     "ReadinessTracker", "Registrar", "Runner", "StatusAggregator",

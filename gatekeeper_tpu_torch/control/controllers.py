@@ -1,7 +1,4 @@
-# Copied from gatekeeper_tpu/control/controllers.py; only these edits differ.
-# Edit: mutation is left out (ROADMAP A5): no `MutatorController`, no
-# `MUTATOR_GVKS`/`MUTATION_GROUP`, and the ConfigController takes no
-# mutation wipe/replay partners (its step 5 is the external-data one).
+# Copied from gatekeeper_tpu/control/controllers.py; unchanged.
 """State-ingestion controllers: the reconcile plane.
 
 Counterparts of pkg/controller/*: each controller consumes watch events
@@ -50,8 +47,17 @@ from .watch import Registrar, WatchManager
 TEMPLATE_GVK = GVK("templates.gatekeeper.sh", "v1beta1", "ConstraintTemplate")
 CONFIG_GVK = GVK("config.gatekeeper.sh", "v1alpha1", "Config")
 CONSTRAINT_GROUP = "constraints.gatekeeper.sh"
+MUTATION_GROUP = "mutations.gatekeeper.sh"
 CONFIG_NAMESPACE = "gatekeeper-system"
 CONFIG_NAME = "config"
+
+# the three mutator GVKs one MutatorController watches (the reference
+# runs one controller per kind; the Event carries its GVK natively here,
+# so one sink covers all three — the ConstraintController pattern)
+MUTATOR_GVKS = tuple(
+    GVK(MUTATION_GROUP, "v1alpha1", kind)
+    for kind in ("Assign", "AssignMetadata", "ModifySet")
+)
 
 EXTERNALDATA_GROUP = "externaldata.gatekeeper.sh"
 PROVIDER_GVK = GVK(EXTERNALDATA_GROUP, "v1alpha1", "Provider")
@@ -321,6 +327,83 @@ class ConstraintController:
             )
 
 
+class MutatorController:
+    """Assign / AssignMetadata / ModifySet ingestion: one sink for all
+    three mutator GVKs, feeding the MutationSystem (the mutation
+    plane's Client). Invalid specs and schema conflicts surface as
+    pod-status errors and metrics, never as webhook failures — the
+    system quarantines conflicted mutators itself."""
+
+    def __init__(
+        self,
+        system,
+        switch: Optional[ControllerSwitch] = None,
+        metrics=None,
+        status=None,
+        logger=None,
+    ):
+        from ..logs import null_logger
+
+        self.system = system
+        self.switch = switch
+        self.metrics = metrics
+        self.status = status
+        self.log = logger if logger is not None else null_logger()
+        self.errors: Dict[str, str] = {}  # "Kind/name" -> last error
+
+    def sink(self, ev: Event) -> None:
+        if self.switch is not None and not self.switch.enter():
+            return
+        kind = ev.gvk.kind
+        name = (ev.obj.get("metadata") or {}).get("name", "")
+        key = f"{kind}/{name}"
+        status = "active"
+        t0 = time.perf_counter()
+        try:
+            if ev.type == DELETED:
+                self.system.remove(key)
+                self.errors.pop(key, None)
+                if self.status is not None:
+                    self.status.delete_mutator(kind, name)
+            else:
+                self.system.upsert(ev.obj)
+                self.errors.pop(key, None)
+        except Exception as e:
+            status = "error"
+            self.errors[key] = str(e)
+            self.log.error(
+                "mutator ingest failed",
+                err=e,
+                process="controller",
+                mutator_kind=kind,
+                mutator_name=name,
+            )
+        if ev.type != DELETED:
+            # schema conflicts are computed set-wide on every upsert:
+            # re-publish status for the conflicted ids so a conflict
+            # introduced by mutator B shows on mutator A's status too
+            conflicts = self.system.conflicts()
+            err = self.errors.get(key)
+            if key in conflicts:
+                status = "error"
+                err = (
+                    "schema conflict with "
+                    + ", ".join(conflicts[key])
+                )
+            if self.status is not None:
+                self.status.publish_mutator(kind, name, status, err)
+        if self.metrics is not None:
+            self.metrics.record(
+                "mutator_ingestion_count", 1, status=status
+            )
+            self.metrics.observe(
+                "mutator_ingestion_duration_seconds",
+                time.perf_counter() - t0,
+                status=status,
+            )
+        self.system.report_gauges()
+
+
 class ProviderController:
     """externaldata.gatekeeper.sh/v1alpha1 Provider ingestion: one sink
     feeding the ExternalDataSystem's registry. Invalid specs surface as
@@ -471,6 +554,12 @@ class ConfigController:
         switch: Optional[ControllerSwitch] = None,
         metrics=None,
         trace_config=None,
+        # mutation wipe/replay partners: on a Config change the mutator
+        # set is wiped and its watches torn down/re-added so the
+        # initial-List replay rebuilds it from the cluster (the same
+        # replayData motion the sync plane gets)
+        mutation_system=None,
+        mutation_registrar: Optional[Registrar] = None,
         # external-data wipe/replay partners: same motion for the
         # provider registry (and its response cache — a Config change
         # must not leave answers from a retired provider set serving)
@@ -485,6 +574,8 @@ class ConfigController:
         self.switch = switch
         self.metrics = metrics
         self.trace_config = trace_config
+        self.mutation_system = mutation_system
+        self.mutation_registrar = mutation_registrar
         self.external_data_system = external_data_system
         self.provider_registrar = provider_registrar
 
@@ -533,7 +624,17 @@ class ConfigController:
         self.sync_registrar.replace_watch(set())
         self.sync_registrar.replace_watch(sync_only)
 
-        # 5. external-data wipe/replay: the provider registry (and its
+        # 5. mutation wipe/replay: the process excluder just changed, so
+        # the live mutator set is rebuilt from scratch the same way the
+        # data cache is — wipe, then bounce the watches so the replayed
+        # Lists re-upsert every mutator CR
+        if self.mutation_system is not None:
+            self.mutation_system.wipe()
+            if self.mutation_registrar is not None:
+                self.mutation_registrar.replace_watch(set())
+                self.mutation_registrar.replace_watch(set(MUTATOR_GVKS))
+
+        # 6. external-data wipe/replay: the provider registry (and its
         # response cache) rebuilds from the cluster the same way — the
         # bounced watch's initial List re-upserts every Provider CR
         if self.external_data_system is not None:

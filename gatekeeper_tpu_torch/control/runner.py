@@ -1,14 +1,14 @@
 # Copied from gatekeeper_tpu/control/runner.py; only these edits differ.
 # Edit: planes that are not ported are left out with their arguments and
-# wiring: mutation (`MutationSystem`, `MutatorController`, the mutator
-# watches; ROADMAP A5), `analysis/corpus.py`'s `CorpusPlane` (A5), the
-# fleet plane (`fleet`, `cert_secret`, `fleet_namespace`, `FleetPlane`,
-# `SecretCertStore`, `FleetCertRotator`, cache and breaker gossip; A10),
-# the `FlightRecorder` (A10; the SloEngine and the IntegrityPlane get
-# recorder=None, and /debug/flightrecords is not served) and the agent
-# plane (A10). TLS uses the pod-local `CertRotator` in `cert_dir`, the
-# reference's single-replica path. The /readyz document drops the
-# mutation, fleet and corpus-analysis blocks.
+# wiring: the fleet plane (`fleet`, `cert_secret`, `fleet_namespace`,
+# `FleetPlane`, `SecretCertStore`, `FleetCertRotator`, cache and breaker
+# gossip; ROADMAP A10), the `FlightRecorder` (A10; the SloEngine and the
+# IntegrityPlane get recorder=None, and /debug/flightrecords is not
+# served) and the agent plane (A10). TLS uses the pod-local `CertRotator`
+# in `cert_dir`, the reference's single-replica path. The /readyz document
+# drops the fleet block.
+# Edit: the MutationSystem screens on the driver's device (its `device`;
+# the card unless the caller asked for the CPU).
 # Edit: `capture_jax_profile` is `capture_torch_profile`: /debug/profile
 # writes a torch.profiler Chrome trace.
 # Edit: TorchDriver has no `set_metrics`, `review_path_warm` or
@@ -21,10 +21,14 @@
 # miss; the reference asked the EventSource per request, one apiserver
 # GET per admission on the batcher's thread under KubeCluster (ROADMAP
 # §C).
-# Edit: the warm thread calls gc.freeze() once ingestion is done and
-# again after the first audit sweep: at 100,000 synced pods each full
-# collection otherwise walks the synced copies and the corpus for seconds
-# while admission requests wait past their timeout (PERF.md §6).
+# Edit: the warm thread calls gc.freeze() once ingestion is done, and the
+# audit manager after every sweep (`freeze_after_sweep`): at 100,000
+# synced pods each full collection otherwise walks the synced copies and
+# the corpus for seconds while admission requests wait past their
+# timeout. Once ingested, the warm thread also sets the collector's
+# thresholds to GC_THRESHOLDS until stop(): with the heap frozen the
+# default (700, 10, 10) ran a full collection every few hundred
+# milliseconds of an HTTPS load (PERF.md §6).
 """The process runtime: boot a cluster-state-driven, Ready, serving
 gatekeeper-tpu instance.
 
@@ -55,6 +59,8 @@ from .controllers import (
     ConfigController,
     ConstraintController,
     ControllerSwitch,
+    MUTATOR_GVKS,
+    MutatorController,
     PROVIDER_GVK,
     ProviderController,
     SyncController,
@@ -79,6 +85,12 @@ OPERATION_STATUS = "status"
 ALL_OPERATIONS = (OPERATION_WEBHOOK, OPERATION_AUDIT, OPERATION_STATUS)
 
 NAMESPACE_GVK = GVK("", "v1", "Namespace")
+
+# the collector's thresholds once the synced state is frozen: young
+# collections every 10,000 allocations, a full one after 100 of the
+# middle generation's (measured on an HTTPS load at 100,000 pods, PERF.md
+# §6)
+GC_THRESHOLDS = (10_000, 10, 100)
 
 
 class Runner:
@@ -286,6 +298,8 @@ class Runner:
         self._event_stop = threading.Event()
         self._warm_stop = threading.Event()
         self._warm_thread: Optional[threading.Thread] = None
+        # the collector's thresholds before the warm thread set its own
+        self._gc_kept: Optional[tuple] = None
         self._event_thread = threading.Thread(
             target=self._drain_events, daemon=True
         )
@@ -326,6 +340,25 @@ class Runner:
         self._sync_registrar = self.watch_mgr.new_registrar(
             "sync-controller", self.sync_controller.sink
         )
+        # mutation plane: the system is always built (cheap when no
+        # mutators exist); the webhook serves /v1/mutate through it and
+        # the controller keeps it synced with the three mutator GVKs
+        from ..mutation import MutationSystem
+
+        self.mutation_system = MutationSystem(
+            metrics=metrics, logger=self.log,
+            device=getattr(getattr(client, "_driver", None), "device", None),
+        )
+        self.mutator_controller = MutatorController(
+            self.mutation_system,
+            switch=self.switch,
+            metrics=metrics,
+            status=self.status_writer,
+            logger=self.log,
+        )
+        self._mutator_registrar = self.watch_mgr.new_registrar(
+            "mutator-controller", self.mutator_controller.sink
+        )
         # external-data plane: the system is always built (cheap with no
         # providers); the Provider controller keeps its registry synced,
         # the client/driver prefetch through it, and the interpreter's
@@ -348,6 +381,17 @@ class Runner:
         self._provider_registrar = self.watch_mgr.new_registrar(
             "provider-controller", self.provider_controller.sink
         )
+        # corpus analysis plane (docs/analysis.md §Corpus analysis):
+        # whole-corpus diagnostics recomputed off the request path on
+        # churn, snapshot on /readyz, prunable keys fed to the planner
+        from ..analysis.corpus import CorpusPlane
+
+        self.corpus = CorpusPlane(
+            client,
+            mutation_system=self.mutation_system,
+            external_data=self.external_data,
+            metrics=metrics,
+        )
         self.config_controller = ConfigController(
             client,
             self._sync_registrar,
@@ -357,6 +401,8 @@ class Runner:
             switch=self.switch,
             metrics=metrics,
             trace_config=self.trace_config,
+            mutation_system=self.mutation_system,
+            mutation_registrar=self._mutator_registrar,
             external_data_system=self.external_data,
             provider_registrar=self._provider_registrar,
         )
@@ -449,6 +495,8 @@ class Runner:
         self._template_registrar.add_watch(TEMPLATE_GVK)
         self._config_registrar.add_watch(CONFIG_GVK)
         self._provider_registrar.add_watch(PROVIDER_GVK)
+        for gvk in MUTATOR_GVKS:
+            self._mutator_registrar.add_watch(gvk)
         if OPERATION_STATUS in self.operations:
             self._status_registrar.add_watch(TEMPLATE_STATUS_GVK)
             self._status_registrar.add_watch(CONSTRAINT_STATUS_GVK)
@@ -473,6 +521,7 @@ class Runner:
                 log_denies=self.log_denies,
                 logger=self.log.with_values(process="webhook"),
                 tracer=self.tracer,
+                mutation_system=self.mutation_system,
                 cert_dir=self.cert_dir,
                 bind_addr=self.bind_addr,
                 fail_policy=self.fail_policy,
@@ -482,6 +531,7 @@ class Runner:
                 decision_log=self.decisions,
                 attributor=self.attributor,
                 replica=self.pod_name,
+                corpus=self.corpus,
                 sched_policy=self.sched_policy,
                 slo=self.slo,
                 integrity=self.integrity,
@@ -519,6 +569,9 @@ class Runner:
                 wait_for=self._wait_ingested,
                 decision_log=self.decisions,
             )
+            # each sweep's corpus lives until the next: freeze it out of
+            # the cyclic collector's reach (see the warm thread)
+            self.audit.freeze_after_sweep = True
             self.audit.start()
 
         if self.webhook is not None:
@@ -545,21 +598,18 @@ class Runner:
                         break
                 if self._warm_stop.is_set():
                     return
-                # the synced state and the audit corpus live as long as
-                # the process: once ingested, and again once the first
-                # sweep has built the corpus, move every object alive
-                # out of the cyclic collector's reach, or each full
-                # collection walks tens of millions of them while the
-                # sweep and admission requests wait
+                # the synced state lives as long as the process: once
+                # ingested, move every object alive out of the cyclic
+                # collector's reach, or each full collection walks tens
+                # of millions of them while the sweep and admission
+                # requests wait (the audit manager freezes each sweep's
+                # corpus the same way)
                 import gc
 
                 gc.freeze()
+                self._gc_kept = gc.get_threshold()
+                gc.set_threshold(*GC_THRESHOLDS)
                 self.webhook.warmup()
-                audit = self.audit
-                while audit is not None and not audit.warmed.wait(0.5):
-                    if self._warm_stop.is_set():
-                        return
-                gc.freeze()
                 drv = getattr(self.client, "_driver", None)
                 check = getattr(drv, "review_path_warm", None)
                 delay = 2.0
@@ -734,6 +784,11 @@ class Runner:
         if self._warm_thread is not None:
             self._warm_thread.join(timeout=10)
             self._warm_thread = None
+        if self._gc_kept is not None:
+            import gc
+
+            gc.set_threshold(*self._gc_kept)
+            self._gc_kept = None
 
     # -- serving helpers -----------------------------------------------------
 
@@ -834,6 +889,17 @@ class Runner:
                             # snapshots (docs/robustness.md §Fault
                             # domains)
                             wh["partitions"] = partitioner.snapshot()
+                        mb = runner.webhook.mutate_batcher
+                        if mb is not None:
+                            wh["mutation"] = {
+                                "shed": mb.shed_count,
+                                "batch_failures": mb.batch_failures,
+                                **(
+                                    {"breaker": mb.breaker.snapshot()}
+                                    if mb.breaker is not None
+                                    else {}
+                                ),
+                            }
                         stats["webhook"] = wh
                         ing = getattr(runner.webhook, "ingest", None)
                         if ing is not None:
@@ -899,6 +965,17 @@ class Runner:
                         wh, "sched_snapshot"
                     ):
                         stats["sched"] = wh.sched_snapshot()
+                    # corpus analysis headline (docs/analysis.md
+                    # §Corpus analysis): diagnostic counts + the
+                    # dead/prunable/shadowed rollup; recompute is
+                    # debounced + off-path, so this only reads the
+                    # cached report (and may kick a background pass)
+                    corpus = getattr(runner, "corpus", None)
+                    if corpus is not None:
+                        corpus.maybe_recompute()
+                        stats["analysis"] = {
+                            "corpus": corpus.snapshot()
+                        }
                     # IR static-analysis headline (docs/analysis.md
                     # §IR analysis): liveness-plane counters + the
                     # per-target report rollup (reads the cached

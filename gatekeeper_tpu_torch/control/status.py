@@ -1,6 +1,4 @@
-# Copied from gatekeeper_tpu/control/status.py; only these edits differ.
-# Edit: the MutatorPodStatus writer (`publish_mutator`, `delete_mutator`
-# and their GVK and labels) is left out with mutation (ROADMAP A5).
+# Copied from gatekeeper_tpu/control/status.py; unchanged.
 """Per-pod status publication + aggregation.
 
 Mirrors the reference's status plane: each pod writes
@@ -26,6 +24,7 @@ from .events import DELETED, Event, GVK
 STATUS_GROUP = "status.gatekeeper.sh"
 TEMPLATE_STATUS_GVK = GVK(STATUS_GROUP, "v1beta1", "ConstraintTemplatePodStatus")
 CONSTRAINT_STATUS_GVK = GVK(STATUS_GROUP, "v1beta1", "ConstraintPodStatus")
+MUTATOR_STATUS_GVK = GVK(STATUS_GROUP, "v1beta1", "MutatorPodStatus")
 PROVIDER_STATUS_GVK = GVK(STATUS_GROUP, "v1beta1", "ProviderPodStatus")
 STATUS_NAMESPACE = "gatekeeper-system"
 
@@ -34,6 +33,8 @@ POD_LABEL = "internal.gatekeeper.sh/pod"
 TEMPLATE_LABEL = "internal.gatekeeper.sh/constrainttemplate-name"
 CONSTRAINT_KIND_LABEL = "internal.gatekeeper.sh/constraint-kind"
 CONSTRAINT_NAME_LABEL = "internal.gatekeeper.sh/constraint-name"
+MUTATOR_KIND_LABEL = "internal.gatekeeper.sh/mutator-kind"
+MUTATOR_NAME_LABEL = "internal.gatekeeper.sh/mutator-name"
 PROVIDER_NAME_LABEL = "internal.gatekeeper.sh/provider-name"
 
 
@@ -147,6 +148,55 @@ class StatusWriter:
             CONSTRAINT_STATUS_GVK,
             STATUS_NAMESPACE,
             self._constraint_status_name(kind, name),
+        )
+
+    # -- mutators ------------------------------------------------------------
+
+    def _mutator_status_name(self, kind: str, name: str) -> str:
+        return (
+            f"{_dashify(self.pod_name)}-{_dashify(kind)}-{_dashify(name)}"
+        )
+
+    def publish_mutator(
+        self,
+        kind: str,
+        name: str,
+        status: str,
+        error: Optional[str],
+    ) -> None:
+        """MutatorPodStatus: ingestion outcome per (pod, mutator) —
+        parse/spec errors AND schema conflicts ride `errors` so
+        operators see why a mutator is quarantined without log-diving
+        (mutatorpodstatus_types.go in the reference)."""
+        errors: List[Dict[str, str]] = []
+        if error:
+            code = (
+                "schema_conflict"
+                if "schema conflict" in error
+                else "ingest_error"
+            )
+            errors.append({"code": code, "message": error})
+        self._apply(
+            MUTATOR_STATUS_GVK,
+            self._mutator_status_name(kind, name),
+            {
+                POD_LABEL: self.pod_name,
+                MUTATOR_KIND_LABEL: kind,
+                MUTATOR_NAME_LABEL: name,
+            },
+            {
+                "id": self.pod_name,
+                "mutatorUID": f"{kind}/{name}",
+                "enforced": status == "active",
+                "errors": errors,
+            },
+        )
+
+    def delete_mutator(self, kind: str, name: str) -> None:
+        self.cluster.delete(
+            MUTATOR_STATUS_GVK,
+            STATUS_NAMESPACE,
+            self._mutator_status_name(kind, name),
         )
 
     # -- external-data providers ----------------------------------------------

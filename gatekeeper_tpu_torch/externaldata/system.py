@@ -2,6 +2,13 @@
 # Edit: the fleet plane is left out (ROADMAP A10): no `set_fleet`, no
 # `fleet` attribute, so breakers are not gossiped and fresh cache entries
 # are not published to peers.
+# Edit: `_fetch` sends an epoch's keys in chunks of the provider's
+# `maxKeysPerRequest`, ceil(n / max_keys) requests, where the reference
+# sends the first max_keys and drops the rest, whose rows then fetch one
+# by one as the interpreter resolves them (ROADMAP §C, C4). Each request
+# passes the breaker, is counted and timed as one fetch and records its
+# own failure; the first failed chunk ends the epoch's fetch, and the keys
+# of the chunks before it stay cached.
 """ExternalDataSystem: the batch plane for out-of-band lookups.
 
 One system per process holds the Provider registry, the TTL response
@@ -230,8 +237,9 @@ class ExternalDataSystem:
     def prefetch(self, wants: Dict[str, Set[str]]) -> None:
         """The batch plane's entry: {provider -> deduped keys} for one
         micro-batch. Issues at most one outbound fetch per provider
-        (cold misses + stale revalidations); never raises — failures
-        are recorded for resolve() to answer per failurePolicy."""
+        (cold misses + stale revalidations), sent in requests of at most
+        maxKeysPerRequest keys; never raises — failures are recorded for
+        resolve() to answer per failurePolicy."""
         for name, keys in wants.items():
             p = self.get(name)
             if p is None or not keys:
@@ -289,6 +297,19 @@ class ExternalDataSystem:
         ).start()
 
     def _fetch(self, p: Provider, keys: List[str]) -> bool:
+        """Outbound ProviderRequests of at most `p.max_keys` keys each,
+        covering every key; populates the cache. Returns True when every
+        request succeeded; the first failure records the failure epoch
+        and ends the fetch."""
+        step = max(1, p.max_keys)
+        for i in range(0, len(keys), step):
+            if not self._fetch_chunk(p, keys[i : i + step]):
+                return False
+        with self._lock:
+            self._failed_epoch.pop(p.name, None)
+        return True
+
+    def _fetch_chunk(self, p: Provider, keys: List[str]) -> bool:
         """One outbound ProviderRequest; populates the cache. Returns
         True on success, records the failure epoch otherwise."""
         from ..obs import start_span
@@ -297,7 +318,6 @@ class ExternalDataSystem:
         if breaker is not None and not breaker.allow():
             self._note_failure(p, "circuit breaker open")
             return False
-        keys = keys[: p.max_keys]
         t0 = time.perf_counter()
         try:
             fire("externaldata.fetch")
@@ -334,7 +354,6 @@ class ExternalDataSystem:
             breaker.record_success()
         with self._lock:
             self.fetch_count += 1
-            self._failed_epoch.pop(p.name, None)
         by_key = {}
         for item in items:
             if isinstance(item, dict) and "key" in item:

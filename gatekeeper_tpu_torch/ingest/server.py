@@ -1,8 +1,7 @@
 # Copied from gatekeeper_tpu/ingest/server.py; only this edit differs.
-# Edit: the port's WebhookServer has no mutation or agent plane (ROADMAP
-# A5, A10), so a mutation or agent frame is answered by its frame type with
-# the reference's 404 for a plane that is off ("mutation not enabled",
-# "agent review not enabled"), not by testing mutation_handler and
+# Edit: the port's WebhookServer has no agent plane (ROADMAP A10), so an
+# agent frame is answered by its frame type with the reference's 404 for a
+# plane that is off ("agent review not enabled"), not by testing
 # agent_handler.
 """IngestServer: frames in, verdict envelopes out (docs/ingest.md).
 
@@ -190,9 +189,13 @@ class IngestServer:
             if frame.ftype == PLANE_LABEL:
                 resp = webhook.label_handler.handle(request)
             elif frame.ftype == PLANE_MUTATE:
-                return 404, json.dumps(
-                    {"error": "mutation not enabled"}
-                ).encode("utf-8")
+                if webhook.mutation_handler is None:
+                    return 404, json.dumps(
+                        {"error": "mutation not enabled"}
+                    ).encode("utf-8")
+                resp = webhook.mutation_handler.handle(
+                    request, trace_id=trace_id
+                )
             elif frame.ftype == PLANE_AGENT:
                 return 404, json.dumps(
                     {"error": "agent review not enabled"}

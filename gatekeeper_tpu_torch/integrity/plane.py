@@ -1,6 +1,19 @@
 # Copied from gatekeeper_tpu/integrity/plane.py; only these edits differ.
 # Edit: the docstrings name TorchDriver and call review_host an oracle. The port has no program store yet
 # (ROADMAP A6), so `store` is None and golden sets live in memory only.
+# Edit: the shadow oracle evaluates the sampled admissions in a process of
+# its own (integrity/oracle.py: the policy at the sample's constraint
+# generation, the review, the verdict rows back), off the serving
+# process's GIL and the driver's serving mutex, where the reference
+# evaluates on the worker thread. The constraints whose template may read
+# the synced inventory are evaluated on the worker thread (review_host
+# with a subset) and their verdicts joined with the child's before the
+# digest; a driver that reports no constraint generation keeps the whole
+# evaluation on the worker thread. A sample whose generation moved before
+# its policy was sent is counted in shadow_skipped_stale. The sampling,
+# the comparison and the quarantine are the reference's. Each
+# evaluation's wall interval is kept (`shadow_intervals`; the snapshot
+# sums them, and the worker thread's share apart).
 """The verdict-integrity plane (docs/robustness.md §Verdict integrity).
 
 Three detection tiers feed the existing quarantine machinery:
@@ -48,10 +61,15 @@ import zlib
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence
 
+from ..constraint.driver import constraint_key
 from ..faults.injection import FaultError, device_point, fire
 from .canary import DEFAULT_K, result_digest, synth_reviews
 
 __all__ = ["IntegrityPlane", "shadow_sampled"]
+
+
+class _Stale(Exception):
+    """The policy moved past a sample's generation before it was sent."""
 
 
 def shadow_sampled(trace_id: Optional[str], sample_n: int) -> bool:
@@ -112,6 +130,16 @@ class IntegrityPlane:
         self._selftest_last: Dict[int, float] = {}
         self._shadow_q: deque = deque(maxlen=max(1, int(shadow_queue_max)))
         self._shadow_event = threading.Event()
+        self._oracle_proc = None
+        # at _split_gen: the constraint kinds that may read the inventory,
+        # their constraints' keys, and whether any constraint is left over
+        self._split_gen: Any = object()
+        self._split: Any = None
+        # wall intervals (perf_counter) of the oracle's evaluations
+        self.shadow_intervals: deque = deque(maxlen=8192)
+        self.shadow_eval_seconds = 0.0
+        self.shadow_thread_seconds = 0.0
+        self.shadow_evaluated = 0
         self._worker: Optional[threading.Thread] = None
         self._closed = False
         self._driver = None
@@ -141,6 +169,10 @@ class IntegrityPlane:
     def close(self) -> None:
         self._closed = True
         self._shadow_event.set()
+        with self._lock:
+            proc, self._oracle_proc = self._oracle_proc, None
+        if proc is not None:
+            proc.close()
 
     # -- tier 1: canary rows -------------------------------------------------
 
@@ -373,11 +405,34 @@ class IntegrityPlane:
             fire("integrity.shadow")
         except FaultError:
             corrupted = True
-        resps = client.review_host(obj)
-        oracle_results: List[Any] = []
-        for resp in getattr(resps, "by_target", {}).values():
-            oracle_results.extend(resp.results)
-        oracle_digest = result_digest(oracle_results)
+        intervals, on_thread = [], []
+        if gen is None:
+            results = self._host_results(client, obj, None, on_thread)
+        else:
+            inv_kinds, inv_keys, rest = self._inventory_split(gen)
+            results = []
+            if rest:
+                try:
+                    rows, t0, t1 = self._oracle().evaluate(
+                        gen, lambda: self._policy_at(gen, inv_kinds), obj
+                    )
+                except _Stale:
+                    with self._lock:
+                        self.shadow_skipped_stale += 1
+                    return
+                intervals.append((t0, t1))
+                results.extend(rows)
+            if inv_keys:
+                results.extend(
+                    self._host_results(client, obj, inv_keys, on_thread)
+                )
+        oracle_digest = result_digest(results)
+        with self._lock:
+            for t0, t1 in intervals + on_thread:
+                self.shadow_intervals.append((t0, t1))
+                self.shadow_eval_seconds += t1 - t0
+            self.shadow_thread_seconds += sum(b - a for a, b in on_thread)
+            self.shadow_evaluated += 1
         if not corrupted and oracle_digest == live_digest:
             return
         with self._lock:
@@ -415,6 +470,64 @@ class IntegrityPlane:
                 )
             except Exception:
                 pass
+
+    def _host_results(self, client, obj, subset, intervals) -> List[Any]:
+        """Verdicts of `subset`'s constraints (all when None) on this
+        thread's interpreter."""
+        t0 = time.perf_counter()
+        resps = client.review_host(obj, subset=subset)
+        intervals.append((t0, time.perf_counter()))
+        return [
+            r for resp in getattr(resps, "by_target", {}).values()
+            for r in resp.results
+        ]
+
+    def _inventory_split(self, gen):
+        """-> (kinds, keys, rest) at constraint generation `gen`: the
+        constraint kinds whose template may read the synced inventory
+        (the oracle process holds none, so this thread evaluates them),
+        their constraints' keys, and whether any other constraint is left
+        for the process. A driver that cannot tell puts every kind here."""
+        if self._split_gen != gen:
+            drv, client = self._driver, self._client
+            reads = getattr(drv, "_reads_inventory", None)
+            kinds, keys, rest, seen = set(), set(), False, {}
+            for t in getattr(client, "targets", {}):
+                for c in drv._constraints(t):
+                    kind = c.get("kind")
+                    if (t, kind) not in seen:
+                        seen[t, kind] = reads is None or reads(t, [c])
+                    if seen[t, kind]:
+                        kinds.add(kind)
+                        keys.add(constraint_key(c))
+                    else:
+                        rest = True
+            self._split = (frozenset(kinds), frozenset(keys), rest)
+            self._split_gen = gen
+        return self._split
+    def _oracle(self):
+        """The oracle process, started on first use and again if it died."""
+        with self._lock:
+            proc = self._oracle_proc
+            if proc is not None and not proc.alive:
+                proc.close()
+                self._oracle_proc = None
+            if self._oracle_proc is None:
+                from .oracle import OracleProcess
+
+                self._oracle_proc = OracleProcess()
+            return self._oracle_proc
+
+    def _policy_at(self, gen, leave_out=frozenset()):
+        """The attached client's policy without the constraint kinds in
+        `leave_out`, if it is still the one at constraint generation
+        `gen` once copied."""
+        from .oracle import policy_snapshot
+
+        policy = policy_snapshot(self._client, leave_out)
+        if getattr(self._driver, "_constraint_gen", None) != gen:
+            raise _Stale()
+        return policy
 
     # -- tier 3: golden self-test + heal -------------------------------------
 
@@ -585,6 +698,9 @@ class IntegrityPlane:
                     "per_device": per_device,
                 },
                 "shadow": {
+                    "evaluated": self.shadow_evaluated,
+                    "eval_seconds": self.shadow_eval_seconds,
+                    "thread_seconds": self.shadow_thread_seconds,
                     "sample_n": self.shadow_sample_n,
                     "sampled": self.shadow_sampled_n,
                     "divergences": self.shadow_divergences,

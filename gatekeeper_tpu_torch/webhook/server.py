@@ -26,15 +26,21 @@
 # driver (set_integrity, set_attributor), as the reference's Runner does,
 # so a server built without the Runner wires them too.
 # Edit: planes that are not ported are left out with their arguments:
-# mutation (ROADMAP A5) and the agent plane (A10), the corpus analyzer
-# (A5; the partitioner gets corpus=None), the flight recorder and the
-# fleet's shared cert store (A10; `rotator` takes the pod-local
-# CertRotator or any object with its interface). A path other
-# than /v1/admit and /v1/admitlabel is answered 404, so the /readyz and
+# the agent plane (ROADMAP A10), the flight recorder and the fleet's
+# shared cert store (A10; `rotator` takes the pod-local CertRotator or any
+# object with its interface). A path other than /v1/admit,
+# /v1/admitlabel and /v1/mutate is answered 404, so the /readyz and
 # /debug/partitions, /debug/programs documents are not served (the
 # dispatcher's plan_table and programs_table build them).
 # Edit: the deadline clock is time.monotonic(): the port's fault registry
 # has no clock-jump skew.
+# Edit: with TLS, each connection's handshake runs on that connection's
+# thread (`do_handshake_on_connect=False`, `_Server.finish_request`). The
+# reference wraps the listening socket with the default, so accept()
+# handshakes every connection in turn on the serving thread: 256 callers
+# connecting at once waited up to 5.4-5.7 s for their first answer
+# (PERF.md §5), and a client that connects and sends nothing stops the
+# accept loop.
 """Micro-batching admission server.
 
 The reference webhook evaluates one AdmissionReview per goroutine behind
@@ -943,8 +949,9 @@ class BatchedValidationHandler(ValidationHandler):
 
 
 class WebhookServer:
-    """Stdlib HTTP(S) server: POST /v1/admit and /v1/admitlabel with
-    AdmissionReview JSON bodies, over HTTP/1.1 keep-alive. `tls=True`
+    """Stdlib HTTP(S) server: POST /v1/admit, /v1/admitlabel and
+    /v1/mutate with AdmissionReview JSON bodies, over HTTP/1.1
+    keep-alive. `tls=True`
     terminates HTTPS with the rotating self-signed pair from
     `certs.CertRotator` (cert_dir defaults to a per-server temp dir)."""
 
@@ -972,6 +979,9 @@ class WebhookServer:
         log_denies: bool = False,
         logger=None,
         tracer=None,
+        # mutation.MutationSystem: wires the /v1/mutate plane (None =
+        # endpoint returns 404, validation-only pod)
+        mutation_system=None,
         # overload / degradation envelope: fail_policy is what a
         # shed/expired/unevaluable request gets — "open" (allow; the
         # reference's failurePolicy: Ignore posture) or "closed" (deny
@@ -1003,6 +1013,9 @@ class WebhookServer:
         # the scheduler's cost model; replica tags the planner's tables
         attributor=None,
         replica: Optional[str] = None,
+        # analysis.corpus.CorpusPlane: feeds the partition planner its
+        # provably-dead (verdict-safe prunable) constraint keys
+        corpus=None,
         # admission scheduling: policy for the batcher — "fifo" is the
         # bit-compatible rollback path, "deadline" enables EDF batch
         # formation + predictive shedding + fair-share quotas. slo is
@@ -1048,7 +1061,7 @@ class WebhookServer:
                 tracer=tracer,
                 attributor=attributor,
                 replica=replica,
-                corpus=None,
+                corpus=corpus,
             )
         # graceful-drain state: `draining` flips BEFORE the listener
         # closes (readiness consults it), in-flight HTTP requests are
@@ -1078,6 +1091,32 @@ class WebhookServer:
             integrity.attach_client(client)
             if self.partitioner is not None:
                 integrity.attach_dispatcher(self.partitioner)
+        self.mutate_batcher = None
+        self.mutation_handler = None
+        if mutation_system is not None:
+            # local import: mutate.py imports from this module
+            from .mutate import MutateBatcher, MutationHandler
+
+            self.mutate_batcher = MutateBatcher(
+                mutation_system, window_ms=window_ms,
+                namespace_getter=namespace_getter,
+                metrics=metrics, tracer=tracer,
+                max_queue=max_queue,
+                decisions=decision_log,
+                sched_policy=sched_policy,
+                slo=slo,
+                attributor=attributor,
+            )
+            self.mutation_handler = MutationHandler(
+                self.mutate_batcher,
+                excluder=excluder,
+                metrics=metrics,
+                request_timeout=request_timeout,
+                logger=logger,
+                tracer=tracer,
+                fail_policy=fail_policy,
+                decision_log=decision_log,
+            )
         self.handler = BatchedValidationHandler(
             self.batcher, excluder=excluder, metrics=metrics,
             request_timeout=request_timeout,
@@ -1174,6 +1213,16 @@ class WebhookServer:
                         resp = outer.handler.handle(
                             request, trace_id=trace_id
                         )
+                    elif self.path == "/v1/mutate":
+                        if outer.mutation_handler is None:
+                            payload = json.dumps(
+                                {"error": "mutation not enabled"}
+                            ).encode()
+                            self.send_response(404)
+                            raise _Handled()
+                        resp = outer.mutation_handler.handle(
+                            request, trace_id=trace_id
+                        )
                     else:
                         payload = json.dumps(
                             {"error": f"no endpoint {self.path}"}
@@ -1216,6 +1265,17 @@ class WebhookServer:
             request_queue_size = 512
             daemon_threads = True
 
+            def finish_request(self, request, client_address):
+                # TLS: the handshake runs here, on the connection's
+                # thread (OpenSSL releases the GIL), not in accept()
+                handshake = getattr(request, "do_handshake", None)
+                if handshake is not None:
+                    try:
+                        handshake()
+                    except OSError:  # ssl.SSLError included
+                        return
+                super().finish_request(request, client_address)
+
         self._httpd = _Server((bind_addr, port), _Handler)
         self.rotator = rotator
         self._ssl_ctx = None
@@ -1234,7 +1294,8 @@ class WebhookServer:
             ctx.load_cert_chain(cert_path, key_path)
             self._ssl_ctx = ctx
             self._httpd.socket = ctx.wrap_socket(
-                self._httpd.socket, server_side=True
+                self._httpd.socket, server_side=True,
+                do_handshake_on_connect=False,
             )
             # rotation pickup without restart: SSLContext is live — a
             # re-load swaps the pair for every handshake AFTER this
@@ -1262,6 +1323,8 @@ class WebhookServer:
 
     def start(self) -> None:
         self.batcher.start()
+        if self.mutate_batcher is not None:
+            self.mutate_batcher.start()
         if self.ingest is not None:
             self.ingest.start()
         self._thread = threading.Thread(
@@ -1297,7 +1360,10 @@ class WebhookServer:
     def sched_snapshot(self) -> Dict[str, Any]:
         """Per-plane admission-scheduler state (the reference's
         `/readyz` `stats.sched` and `/debug/sched` document)."""
-        return {"validation": self.batcher.sched.snapshot()}
+        out = {"validation": self.batcher.sched.snapshot()}
+        if self.mutate_batcher is not None:
+            out["mutation"] = self.mutate_batcher.sched.snapshot()
+        return out
 
     # -- graceful drain ------------------------------------------------------
 
@@ -1359,6 +1425,8 @@ class WebhookServer:
         if self.ingest is not None:
             self.ingest.close()
         self.batcher.stop()
+        if self.mutate_batcher is not None:
+            self.mutate_batcher.stop()
         if self.partitioner is not None:
             self.partitioner.close()
         if self._thread is not None:

@@ -950,3 +950,251 @@ def test_host_oracle_yields_to_queued_fused_dispatches():
         assert torchdriver.ORACLE_YIELD_S <= time.monotonic() - t0 < 10
     finally:
         drv._fused_waiting = 0
+
+
+# ---------------------------------------------------------------------------
+# mutation: the mutator controller, its status, the Runner's wiring
+
+
+def _mutator(kind, name, location, value=None, match=None):
+    spec = {"location": location}
+    if kind == "ModifySet":
+        spec["parameters"] = {"operation": "merge",
+                              "values": {"fromList": [value]}}
+    else:
+        spec["parameters"] = {"assign": {"value": value}}
+    if kind != "AssignMetadata":
+        spec["applyTo"] = [{"groups": [""], "versions": ["v1"],
+                            "kinds": ["Pod"]}]
+    if match is not None:
+        spec["match"] = match
+    return {"apiVersion": "mutations.gatekeeper.sh/v1alpha1", "kind": kind,
+            "metadata": {"name": name}, "spec": spec}
+
+
+MUTATOR_EVENTS = [
+    ("ADDED", _mutator("Assign", "obj-view", "spec.foo.bar", "v")),
+    ("ADDED", _mutator("Assign", "broken", "spec..x", "v")),
+    ("ADDED", _mutator("AssignMetadata", "owner", "metadata.labels.owner",
+                       "platform")),
+    ("ADDED", _mutator("Assign", "list-view", "spec.foo[name: x].bar", "v")),
+    ("ADDED", _mutator("ModifySet", "args", "spec.containers[name: *].args",
+                       "--v")),
+    ("MODIFIED", _mutator("Assign", "broken", "spec.x", "v")),
+    ("DELETED", _mutator("Assign", "list-view", "spec.foo[name: x].bar",
+                         "v")),
+    ("DELETED", _mutator("ModifySet", "args",
+                         "spec.containers[name: *].args", "--v")),
+]
+
+
+def test_mutator_controller_ingest_remove_and_status_equal_jax():
+    """MutatorController ingestion, schema-conflict quarantine, removal
+    and the MutatorPodStatus writes, step by step against the JAX
+    package's controller over its own FakeCluster."""
+    from gatekeeper_tpu.control import FakeCluster as JFakeCluster
+    from gatekeeper_tpu.control.controllers import (
+        MUTATOR_GVKS as J_MUTATOR_GVKS,
+        MutatorController as JMutatorController,
+    )
+    from gatekeeper_tpu.control.events import Event as JEvent
+    from gatekeeper_tpu.control.status import (
+        MUTATOR_STATUS_GVK as J_STATUS_GVK,
+        StatusWriter as JStatusWriter,
+    )
+    from gatekeeper_tpu.metrics import MetricsRegistry as JMetricsRegistry
+    from gatekeeper_tpu.mutation import MutationSystem as JMutationSystem
+    from gatekeeper_tpu_torch.control import MUTATOR_GVKS, MutatorController
+    from gatekeeper_tpu_torch.control.events import Event
+    from gatekeeper_tpu_torch.control.status import (
+        MUTATOR_STATUS_GVK,
+        StatusWriter,
+    )
+    from gatekeeper_tpu_torch.mutation import MutationSystem
+
+    sides = []
+    for (cluster, gvks, ctrl_cls, event, writer, status_gvk, registry,
+         system) in (
+        (FakeCluster(), MUTATOR_GVKS, MutatorController, Event, StatusWriter,
+         MUTATOR_STATUS_GVK, MetricsRegistry(),
+         MutationSystem(device="cpu")),
+        (JFakeCluster(), J_MUTATOR_GVKS, JMutatorController, JEvent,
+         JStatusWriter, J_STATUS_GVK, JMetricsRegistry(), JMutationSystem()),
+    ):
+        system.metrics = registry
+        ctrl = ctrl_cls(system, metrics=registry,
+                        status=writer(cluster, "pod-1"))
+        by_kind = {g.kind: g for g in gvks}
+        steps = []
+        for etype, obj in MUTATOR_EVENTS:
+            ctrl.sink(event(etype, by_kind[obj["kind"]], obj))
+            steps.append((
+                dict(ctrl.errors), system.conflicts(),
+                [m.id for m in system.ordered()],
+                sorted((s["metadata"]["name"], s["metadata"].get("labels"),
+                        s["status"]) for s in cluster.list(status_gvk)),
+            ))
+        snap = registry.snapshot()
+        sides.append((steps, snap["gauges"], {
+            k: v for k, v in snap["counters"].items()
+            if k.startswith("mutator_ingestion_count")}))
+    assert sides[0] == sides[1]
+    steps = sides[0][0]
+    assert steps[3][1]  # the list-view/obj-view conflict quarantined both
+    assert "Assign/obj-view" not in steps[3][2]
+    assert not steps[-1][1] and "Assign/obj-view" in steps[-1][2]
+    assert "Assign/broken" in steps[1][0] and not steps[5][0]
+
+
+def _post_mutate(runner, req):
+    body = json.dumps({"apiVersion": "admission.k8s.io/v1",
+                       "kind": "AdmissionReview", "request": req}).encode()
+    r = urllib.request.Request(
+        f"http://127.0.0.1:{runner.webhook.port}/v1/mutate", data=body,
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(r, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def _wait(pred, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while not pred() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    return pred()
+
+
+def test_runner_serves_mutate_and_config_replays_mutators(booted):
+    """Mutator CRs ingest through the Runner's watches into /v1/mutate;
+    a Config change wipes the mutator set and the bounced watches replay
+    it; the screen runs on the driver's device."""
+    import base64
+
+    from gatekeeper_tpu_torch.mutation.patch import apply_patch
+
+    cluster, runner = booted
+    assert runner.mutation_system.device == runner.client._driver.device
+    cluster.apply(_mutator("AssignMetadata", "owner", "metadata.labels.owner",
+                           "platform"))
+    cluster.apply(_mutator("Assign", "pull", "spec.containers[name: *]."
+                           "imagePullPolicy", "Always",
+                           match={"labelSelector": {"matchLabels": {
+                               "app": "web"}}}))
+    assert _wait(lambda: runner.mutation_system.count() == 2)
+    obj = pod("incoming", labels={"app": "web"})
+    req = {"uid": "m1", "kind": {"group": "", "version": "v1",
+                                 "kind": "Pod"},
+           "operation": "CREATE", "name": "incoming", "namespace": "default",
+           "userInfo": {"username": "alice"}, "object": obj}
+    out = _post_mutate(runner, req)
+    ops = json.loads(base64.b64decode(out["response"]["patch"]))
+    after = apply_patch(obj, ops)
+    assert after["metadata"]["labels"]["owner"] == "platform"
+    assert after["spec"]["containers"][0]["imagePullPolicy"] == "Always"
+    assert runner.mutation_system.screen_dispatches >= 1
+    gen = runner.mutation_system.generation
+    cluster.apply(config(sync_kinds=(("", "v1", "Pod"),
+                                     ("", "v1", "Namespace"))))
+    runner.watch_mgr.wait_idle(timeout=10)
+    assert _wait(lambda: runner.mutation_system.count() == 2)
+    assert runner.mutation_system.generation >= gen + 2  # wiped, replayed
+    out = _post_mutate(runner, dict(req, uid="m2"))
+    assert out["response"]["patch"]
+
+
+def test_readyz_mutation_and_corpus_blocks(booted):
+    cluster, runner = booted
+    cluster.apply(_mutator("AssignMetadata", "owner", "metadata.labels.owner",
+                           "platform"))
+    assert _wait(lambda: runner.mutation_system.count() == 1)
+    runner.corpus.refresh(force=True)
+
+    def readyz():
+        with urllib.request.urlopen(
+            f"http://127.0.0.1:{runner.readyz_port}/readyz", timeout=30
+        ) as resp:
+            return json.loads(resp.read())["stats"]
+
+    stats = readyz()
+    mut = stats["webhook"]["mutation"]
+    assert mut["shed"] == 0 and mut["batch_failures"] == 0
+    assert mut["breaker"]["state"] == "closed"
+    corpus = stats["analysis"]["corpus"]
+    assert corpus["computed"] and corpus["subjects"] == 3
+    assert "mutation" in stats["sched"]
+    text = runner.metrics.prometheus_text()
+    assert "gatekeeper_mutator_ingestion_count{" in text
+
+
+def test_ingest_mutation_frames_answer_as_http():
+    """Framed mutation requests go to the mutation handler: the same
+    answer bytes as /v1/mutate over HTTP (the reference's frame routing;
+    the port answered them 404 before mutation was ported)."""
+    from gatekeeper_tpu_torch.ingest import PLANE_MUTATE, StreamClient
+    from gatekeeper_tpu_torch.mutation import MutationSystem
+    from gatekeeper_tpu_torch.webhook import WebhookServer
+
+    system = MutationSystem(device="cpu")
+    system.upsert(_mutator("AssignMetadata", "owner",
+                           "metadata.labels.owner", "platform"))
+    server = WebhookServer(new_client(), TARGET, window_ms=2.0,
+                           request_timeout=30, ingest=True,
+                           mutation_system=system)
+    server.start()
+    try:
+        for i, operation in enumerate(("CREATE", "DELETE")):
+            req = {"uid": f"f{i}", "kind": {"group": "", "version": "v1",
+                                            "kind": "Pod"},
+                   "operation": operation, "name": f"p{i}",
+                   "namespace": "default",
+                   "userInfo": {"username": "alice"},
+                   "object": pod(f"p{i}")}
+            body = json.dumps({"apiVersion": "admission.k8s.io/v1",
+                               "kind": "AdmissionReview",
+                               "request": req}).encode()
+            with StreamClient("127.0.0.1", server.ingest.port) as c:
+                status, payload = c.request(body, PLANE_MUTATE,
+                                            timeout=30.0)
+            r = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/v1/mutate", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(r, timeout=30) as resp:
+                http_body = json.loads(resp.read())
+            assert status == 200
+            framed = json.loads(payload)
+            assert framed == http_body
+            assert ("patch" in framed["response"]) is (operation == "CREATE")
+        assert server.batcher.requests_batched == 0
+        assert server.mutate_batcher.requests_batched >= 2
+    finally:
+        server.stop()
+
+
+def test_runner_freezes_each_sweep_and_sets_collector_thresholds(
+        monkeypatch):
+    """Once ingested, the Runner freezes the heap and sets the collector
+    thresholds of PERF.md §6 until it stops; every audit sweep freezes
+    again."""
+    import gc
+
+    from gatekeeper_tpu_torch.control.runner import GC_THRESHOLDS
+
+    kept = gc.get_threshold()
+    freezes = []
+    real = gc.freeze
+    monkeypatch.setattr(gc, "freeze", lambda: freezes.append(1) or real())
+    cluster = FakeCluster()
+    cluster.apply(config())
+    cluster.apply(pod("a"))
+    runner = make_runner(cluster)
+    try:
+        runner.start()
+        assert runner.wait_ready(30)
+        assert _wait(lambda: gc.get_threshold() == GC_THRESHOLDS)
+        assert _wait(lambda: len(freezes) == 2)  # ingested, first sweep
+        assert runner.audit.freeze_after_sweep
+        for _ in range(3):
+            runner.audit.audit()
+        assert len(freezes) == 5
+    finally:
+        runner.stop()
+    assert gc.get_threshold() == kept

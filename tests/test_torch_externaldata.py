@@ -769,3 +769,76 @@ def test_canaries_never_reach_the_provider(flagged_stub):
     wanted = {c["image"] for r in batch for c in r.object["spec"]["containers"]}
     assert set(stub.requests[-1]) == wanted
     assert sum(bool(o.by_target[TARGET].results) for o in out) > 0
+
+
+# -- C4: one epoch's fetch covers every key, maxKeysPerRequest at a time ------
+
+
+def test_epoch_fetch_chunks_by_max_keys_and_resolves_as_jax(stub_provider):
+    """ROADMAP §C, C4, a standing divergence: one batch epoch of 6,002
+    keys at the provider's default maxKeysPerRequest (512) makes
+    ceil(6002 / 512) = 12 fetches in the port, every key cached; the
+    JAX package sends the first 512 and fetches the rest as rows
+    resolve them. Every resolved answer is the same in both."""
+    rng = np.random.default_rng(4)
+    keys = sorted({f"registry.example/img{int(k)}:v{int(k) % 7}"
+                   for k in rng.choice(50_000, 6_002, replace=False)})
+    for k in rng.choice(len(keys), 60, replace=False):
+        keys[int(k)] = "bad-" + keys[int(k)]
+    assert len(set(keys)) == 6_002
+    order = [keys[int(i)] for i in rng.permutation(len(keys))]
+    got = {}
+    for name, cls in (("torch", ExternalDataSystem),
+                      ("tpu", JExternalDataSystem)):
+        n0 = len(stub_provider.requests)
+        system = cls()
+        system.upsert(stub_provider.provider_obj())
+        assert system.get("stub-provider").max_keys == 512
+        system.begin_batch()
+        system.prefetch({"stub-provider": set(keys)})
+        after_prefetch = system.fetch_count
+        answers = [system.resolve("stub-provider", order[i:i + 8])
+                   for i in range(0, len(order), 8)]
+        got[name] = (answers, after_prefetch, system.fetch_count,
+                     [len(r) for r in stub_provider.requests[n0:]])
+    answers, after_prefetch, total, sizes = got["torch"]
+    assert answers == got["tpu"][0]
+    assert after_prefetch == total == 12
+    assert sizes == [512] * 11 + [6_002 - 11 * 512]
+    assert sum(len(a["errors"]) for a in answers) == 60
+    # the reference: one request of 512 keys, then fetches by row
+    assert got["tpu"][1] == 1 and got["tpu"][2] > 12
+    assert got["tpu"][3][0] == 512
+
+
+def test_failed_chunk_ends_the_epoch_fetch_and_keeps_earlier_chunks(
+        stub_provider):
+    """A chunk that fails records the epoch's failure as one failed fetch
+    does: the chunks after it are not sent, resolve does not refetch
+    within the epoch, and the keys of the chunks before it stay cached."""
+    system = ExternalDataSystem()
+    system.upsert(stub_provider.provider_obj(maxKeysPerRequest=100))
+    inner, calls = system.fetcher, []
+
+    def fetch(p, keys):
+        calls.append(list(keys))
+        if len(calls) == 2:
+            raise RuntimeError("chunk refused")
+        return inner.fetch(p, keys)
+
+    system.fetcher = type("F", (), {"fetch": staticmethod(fetch)})()
+    keys = [f"k{i:04d}" for i in range(250)]
+    system.begin_batch()
+    system.prefetch({"stub-provider": set(keys)})
+    assert [len(c) for c in calls] == [100, 100]
+    assert system.fetch_count == 1
+    states = system.cache.classify("stub-provider", keys)
+    assert [states[k][0] for k in keys[:100]] == [HIT] * 100
+    assert {states[k][0] for k in keys[100:]} == {MISS}
+    r = system.resolve("stub-provider", keys[150:160])
+    assert r["status_code"] == 500 and "chunk refused" in r["system_error"]
+    assert len(calls) == 2  # no refetch within the epoch
+    system.begin_batch()
+    system.prefetch({"stub-provider": set(keys)})
+    assert [len(c) for c in calls] == [100, 100, 100, 50]
+    assert system.fetch_count == 3

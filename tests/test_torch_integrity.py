@@ -224,3 +224,251 @@ def test_review_host_and_shadow_oracle_use_the_interpreter(monkeypatch):
         assert plane.shadow_divergences == 1 and fused[0]
     finally:
         plane.close()
+
+
+# -- C5: the shadow oracle in a process of its own ----------------------------
+
+
+def _wait_shadow(plane, pred, timeout=60.0):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not pred(plane.snapshot()["shadow"]) and \
+            time.monotonic() < deadline:
+        time.sleep(0.02)
+    return plane.snapshot()["shadow"]
+
+
+def _process_plane(client, drv, **kw):
+    plane = IntegrityPlane(shadow_sample_n=1, **kw)
+    plane.attach_client(client)
+    drv.set_integrity(plane)
+    return plane
+
+
+def test_process_oracle_reports_a_wrong_device_verdict(monkeypatch):
+    """ROADMAP §C, C5: with the oracle in a process of its own, a right
+    verdict is confirmed and a wrong one (a device answer with a
+    violation dropped) is reported as a divergence, as on the thread;
+    the serving process never runs the interpreter for it."""
+    import os
+
+    drv = TorchDriver(device="cpu")
+    client = _client(TBackend, TTarget, drv)
+    objs = _batch(5, 6)
+    served = client.review_many(objs)
+    results = [r.by_target[TARGET].results for r in served]
+    bad = next(i for i, rs in enumerate(results) if rs)
+    monkeypatch.setattr(client, "review_host", lambda *a, **kw: pytest.fail(
+        "the serving process ran the oracle"))
+    plane = _process_plane(client, drv)
+    try:
+        for i, (obj, rs) in enumerate(zip(objs, results)):
+            assert plane.note_live(f"t-{i}", obj, rs)
+        snap = _wait_shadow(plane, lambda s: s["evaluated"] == len(objs))
+        assert snap["evaluated"] == len(objs) and snap["divergences"] == 0
+        assert plane.note_live("t-wrong", objs[bad], results[bad][1:])
+        snap = _wait_shadow(plane, lambda s: s["divergences"] == 1)
+        assert snap["divergences"] == 1
+        assert plane._oracle_proc.pid != os.getpid()
+        assert snap["eval_seconds"] > 0 and len(plane.shadow_intervals) == 7
+    finally:
+        plane.close()
+    assert plane._oracle_proc is None
+
+
+def test_process_oracle_through_the_webhook_reports_injected_verdicts(
+        monkeypatch):
+    """A wrong device verdict injected into the fused path while the
+    webhook serves: every sampled admission with a violation is reported,
+    and the right ones before it are not."""
+    import json
+    import urllib.request
+
+    from gatekeeper_tpu_torch.obs import Tracer
+    from gatekeeper_tpu_torch.webhook import WebhookServer
+
+    drv = TorchDriver(device="cpu")
+    client = _client(TBackend, TTarget, drv)
+    plane = IntegrityPlane(shadow_sample_n=1)
+    # a traced request carries the trace id the sampling hashes
+    server = WebhookServer(client, TARGET, window_ms=1.0, integrity=plane,
+                           request_timeout=60, tracer=Tracer())
+    server.start()
+
+    def post(i, pod):
+        req = {"uid": f"w-{i}", "operation": "CREATE", "name": f"w-{i}",
+               "namespace": pod["metadata"]["namespace"],
+               "kind": {"group": "", "version": "v1", "kind": "Pod"},
+               "userInfo": {"username": "alice"}, "object": pod}
+        body = json.dumps({"apiVersion": "admission.k8s.io/v1",
+                           "kind": "AdmissionReview", "request": req})
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/v1/admit",
+                data=body.encode()), timeout=60) as r:
+            return json.loads(r.read())["response"]["allowed"]
+
+    pods = [o.object for o in _batch(9, 8)]
+    try:
+        allowed = [post(i, p) for i, p in enumerate(pods)]
+        assert not all(allowed)
+        snap = _wait_shadow(plane, lambda s: s["evaluated"] == len(pods))
+        assert snap["divergences"] == 0
+        inner = client.review_many
+
+        def wrong(objs, *a, **kw):  # the device drops every violation
+            out = inner(objs, *a, **kw)
+            for resp in out:
+                resp.by_target[TARGET].results = []
+            return out
+
+        monkeypatch.setattr(client, "review_many", wrong)
+        assert all(post(100 + i, p) for i, p in enumerate(pods))
+        snap = _wait_shadow(
+            plane, lambda s: s["evaluated"] == 2 * len(pods))
+        assert snap["divergences"] == allowed.count(False)
+    finally:
+        server.stop()
+        plane.close()
+
+
+def test_process_oracle_counts_stale_and_dropped_samples(monkeypatch):
+    drv = TorchDriver(device="cpu")
+    client = _client(TBackend, TTarget, drv)
+    objs = _batch(3, 5)
+    plane = _process_plane(client, drv, shadow_queue_max=2)
+    monkeypatch.setattr(plane, "_ensure_worker", lambda: None)
+    try:
+        for i, obj in enumerate(objs):
+            assert plane.note_live(f"s-{i}", obj, [])
+        assert plane.snapshot()["shadow"]["dropped"] == 3
+        # the policy moves before the queued samples are evaluated
+        client.add_constraint(chip_smoke.constraint_docs(17)[-1])
+        plane.drain_shadow(timeout_s=60)
+        snap = plane.snapshot()["shadow"]
+        assert snap["skipped_stale"] == 2 and snap["evaluated"] == 0
+        assert plane._oracle_proc is None  # nothing was sent
+        # a sample at the new generation is evaluated in the process
+        assert plane.note_live("s-new", objs[0], [])
+        plane.drain_shadow(timeout_s=60)
+        snap = plane.snapshot()["shadow"]
+        assert snap["evaluated"] == 1 and plane._oracle_proc is not None
+    finally:
+        plane.close()
+
+
+def test_process_oracle_resolves_external_data_through_the_parent(
+        stub_provider):
+    """A policy that calls external data evaluates in the oracle process
+    against the serving process's ExternalDataSystem: the answers the
+    webhook served are confirmed, a wrong one is reported."""
+    from gatekeeper_tpu_torch.externaldata import ExternalDataSystem
+    from tests.test_torch_externaldata import (
+        external_constraint,
+        external_template,
+    )
+
+    system = ExternalDataSystem()
+    system.upsert(stub_provider.provider_obj())
+    drv = TorchDriver(device="cpu")
+    client = TBackend(drv).new_client(TTarget())
+    client.set_external_data(system)
+    client.add_template(external_template())
+    client.add_constraint(external_constraint())
+    pods = [{"apiVersion": "v1", "kind": "Pod",
+             "metadata": {"name": f"x{i}", "namespace": "default"},
+             "spec": {"containers": [{"name": "c", "image": img}]}}
+            for i, img in enumerate(["good:1", "bad-img:2", "good:3"])]
+    objs = [TAug(p) for p in pods]
+    results = [r.by_target[TARGET].results for r in client.review_many(objs)]
+    assert [bool(r) for r in results] == [False, True, False]
+    fetches = stub_provider.fetch_count
+    plane = _process_plane(client, drv)
+    try:
+        for i, (obj, rs) in enumerate(zip(objs, results)):
+            plane.note_live(f"e-{i}", obj, rs)
+        plane.note_live("e-wrong", objs[1], [])
+        snap = _wait_shadow(plane, lambda s: s["evaluated"] == 4)
+        assert snap["evaluated"] == 4 and snap["divergences"] == 1
+        assert stub_provider.fetch_count == fetches  # served from the cache
+    finally:
+        plane.close()
+        from gatekeeper_tpu_torch.externaldata import set_system
+
+        set_system(None)
+
+
+def test_inventory_reading_policy_stays_on_the_worker_thread(monkeypatch):
+    """The constraints whose template reads the synced inventory (the
+    uniqueness joins) are evaluated on the worker thread and every other
+    constraint in the oracle process, which is sent no join template; the
+    joined verdicts confirm the served ones, and a wrong verdict on either
+    side is reported."""
+    joins = set(chip_smoke.UNIQUENESS)
+    drv = TorchDriver(device="cpu")
+    client = _client(TBackend, TTarget, drv, joins=True)
+    objs = chip_smoke.mixed_review_batch(1, 24, 60) + _batch(5, 6)
+    results = [r.by_target[TARGET].results for r in client.review_many(objs)]
+
+    def kinds(rs):
+        return {r.constraint["kind"] for r in rs}
+
+    join = next(i for i, rs in enumerate(results) if kinds(rs) & joins)
+    plain = next(i for i, rs in enumerate(results)
+                 if rs and not kinds(rs) & joins)
+    subsets, sent = [], []
+    host = client.review_host
+
+    def review_host(obj, subset=None):
+        subsets.append(subset)
+        return host(obj, subset=subset)
+
+    monkeypatch.setattr(client, "review_host", review_host)
+    plane = _process_plane(client, drv)
+    policy_at = plane._policy_at
+
+    def recorded(gen, leave_out=frozenset()):
+        sent.append(policy_at(gen, leave_out))
+        return sent[-1]
+
+    monkeypatch.setattr(plane, "_policy_at", recorded)
+    try:
+        for i, (obj, rs) in enumerate(zip(objs, results)):
+            assert plane.note_live(f"i-{i}", obj, rs)
+        snap = _wait_shadow(plane, lambda s: s["evaluated"] == len(objs))
+        assert snap["evaluated"] == len(objs) and snap["divergences"] == 0
+        assert snap["thread_seconds"] > 0 and plane._oracle_proc is not None
+        want = {f"{c['kind']}/{c['metadata']['name']}"
+                for c in chip_smoke.uniqueness_constraints()}
+        assert len(subsets) == len(objs) and all(s == want for s in subsets)
+        templates, constraints = sent[0]
+        assert len(sent) == 1 and constraints
+        assert not {c["kind"] for c in constraints} & joins
+        assert not {t["spec"]["crd"]["spec"]["names"]["kind"]
+                    for t in templates} & joins
+        assert plane.note_live("i-join", objs[join], [
+            r for r in results[join] if r.constraint["kind"] not in joins])
+        assert plane.note_live("i-plain", objs[plain], results[plain][1:])
+        snap = _wait_shadow(plane, lambda s: s["divergences"] == 2)
+        assert snap["divergences"] == 2
+    finally:
+        plane.close()
+
+
+def test_process_oracle_restarts_after_its_process_died():
+    drv = TorchDriver(device="cpu")
+    client = _client(TBackend, TTarget, drv)
+    objs = _batch(6, 2)
+    plane = _process_plane(client, drv)
+    try:
+        plane.note_live("d-0", objs[0], [])
+        _wait_shadow(plane, lambda s: s["evaluated"] == 1)
+        first = plane._oracle_proc
+        first._proc.kill()
+        first._proc.join(10)
+        plane.note_live("d-1", objs[1], [])
+        snap = _wait_shadow(plane, lambda s: s["evaluated"] == 2)
+        assert snap["evaluated"] == 2
+        assert plane._oracle_proc is not first and plane._oracle_proc.alive
+    finally:
+        plane.close()

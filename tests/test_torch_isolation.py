@@ -363,6 +363,77 @@ def test_process_planes_run_with_jax_blocked(tmp_path):
     assert out.stdout.split() == ["2", "False", "2"]
 
 
+MUTATION_PLANE = (
+    "gatekeeper_tpu_torch.mutation",
+    "gatekeeper_tpu_torch.mutation.lint",
+    "gatekeeper_tpu_torch.mutation.mutators",
+    "gatekeeper_tpu_torch.mutation.patch",
+    "gatekeeper_tpu_torch.mutation.path",
+    "gatekeeper_tpu_torch.mutation.system",
+    "gatekeeper_tpu_torch.webhook.mutate",
+    "gatekeeper_tpu_torch.analysis.corpus",
+    "gatekeeper_tpu_torch.integrity.oracle",
+)
+
+
+def test_mutation_plane_runs_with_jax_blocked():
+    """The mutation package, the /v1/mutate batcher, the corpus plane and
+    the shadow oracle's process import, and a Runner over the FakeCluster
+    ingests a mutator CR through its watch, answers /v1/mutate with a
+    patch and reports its corpus on the CPU, while its shadow oracle
+    process evaluates a sampled admission, in an interpreter where
+    importing jax or the JAX package fails."""
+    assert set(MUTATION_PLANE) <= set(_modules())
+    code = (
+        "import base64, importlib, json, sys, time, urllib.request\n"
+        "for m in ('jax', 'jaxlib', 'gatekeeper_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {MUTATION_PLANE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from gatekeeper_tpu_torch.constraint import Backend, K8sValidationTarget\n"
+        "from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver\n"
+        "from gatekeeper_tpu_torch.control import FakeCluster, Runner\n"
+        "c = FakeCluster()\n"
+        "for t in chip_smoke.template_docs():\n"
+        "    c.apply(t)\n"
+        "for k in chip_smoke.constraint_docs(8):\n"
+        "    c.apply(k)\n"
+        "c.apply(chip_smoke.mutation_docs()[0])\n"
+        "client = Backend(TorchDriver(device='cpu')).new_client(K8sValidationTarget())\n"
+        "r = Runner(c, client, chip_smoke.TARGET, webhook_tls=False, audit_interval=3600.0)\n"
+        "try:\n"
+        "    r.start()\n"
+        "    assert r.wait_ready(60)\n"
+        "    while r.mutation_system.count() < 1:\n"
+        "        time.sleep(0.05)\n"
+        "    req = chip_smoke.admission_request(chip_smoke.make_pod(17), 'u')\n"
+        "    url = f'http://127.0.0.1:{r.webhook.port}/v1/mutate'\n"
+        "    out = json.loads(urllib.request.urlopen(\n"
+        "        url, chip_smoke._envelope(req), timeout=60).read())\n"
+        "    ops = json.loads(base64.b64decode(out['response']['patch']))\n"
+        "    plane = r.integrity\n"
+        "    plane.shadow_sample_n = 1\n"
+        "    obj = client.targets[chip_smoke.TARGET].augment_request(req)\n"
+        "    plane.note_live('t', obj, [])\n"
+        "    deadline = time.monotonic() + 60\n"
+        "    while not plane.shadow_evaluated and time.monotonic() < deadline:\n"
+        "        time.sleep(0.05)\n"
+        "    in_process = plane._oracle_proc is not None\n"
+        "    corpus = r.corpus.refresh().subjects\n"
+        "finally:\n"
+        "    r.stop()\n"
+        "print(len(ops) > 0, plane.shadow_evaluated, in_process, corpus)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True", "1", "True", "17"]
+
+
 def test_entry_and_inventory_joins_run_with_jax_blocked():
     """The harness step (gatekeeper_tpu_torch.entry) and an audit over the
     uniqueness joins run on the CPU in an interpreter where importing jax

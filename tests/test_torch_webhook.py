@@ -614,11 +614,12 @@ UNPORTED = [
 ]
 
 
-# the driver planes (partitions, cost attribution, integrity) and TLS have
-# their arguments since they were ported; those cases check the wiring
-# instead
+# the driver planes (partitions, cost attribution, integrity), TLS, the
+# mutation plane and the corpus plane have their arguments since they were
+# ported; those cases check the wiring instead
 PORTED = {"partitions", "partition_devices", "attributor", "replica",
-          "integrity", "tls", "cert_dir", "rotator"}
+          "integrity", "tls", "cert_dir", "rotator", "mutation_system",
+          "corpus"}
 TLS_ARGS = {"tls", "cert_dir", "rotator"}
 
 
@@ -658,6 +659,14 @@ def test_unported_plane_raises(client, name, value, tmp_path):
         kw[name] = CostAttributor()
     elif name == "integrity":
         kw[name] = IntegrityPlane()
+    elif name == "mutation_system":
+        from gatekeeper_tpu_torch.mutation import MutationSystem
+
+        kw[name] = MutationSystem(device="cpu")
+    elif name == "corpus":
+        from gatekeeper_tpu_torch.analysis.corpus import CorpusPlane
+
+        kw[name] = CorpusPlane(client)
     server = WebhookServer(client, TARGET, **kw)
     server.start()
     try:
@@ -674,7 +683,42 @@ def test_unported_plane_raises(client, name, value, tmp_path):
         elif name == "integrity":
             assert drv.integrity is kw[name] is server.batcher.integrity
             assert kw[name]._dispatcher is part
+        elif name == "mutation_system":
+            assert server.mutate_batcher.system is kw[name]
+            assert server.mutation_handler.batcher is server.mutate_batcher
+        elif name == "corpus":
+            assert part.corpus is kw[name]
     finally:
+        server.stop()
+
+
+def test_tls_handshake_runs_on_the_connection_thread(client, tmp_path):
+    """A client that connects and never starts its TLS handshake holds
+    only its own connection's thread: another caller's HTTPS request is
+    answered meanwhile (the reference handshakes in accept(), so it would
+    wait behind the silent client)."""
+    import json
+    import socket
+    import ssl
+
+    server = WebhookServer(client, TARGET, tls=True,
+                           cert_dir=str(tmp_path / "certs"))
+    server.start()
+    silent = socket.create_connection(("127.0.0.1", server.port))
+    try:
+        ctx = ssl.create_default_context(cafile=server.rotator.ca_path)
+        ctx.check_hostname = False
+        body = json.dumps({
+            "apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+            "request": admission_request(pod("tls-1"), namespace="default"),
+        }).encode()
+        req = urllib.request.Request(
+            f"https://127.0.0.1:{server.port}/v1/admit", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, context=ctx, timeout=20) as r:
+            assert "response" in json.loads(r.read())
+    finally:
+        silent.close()
         server.stop()
 
 
