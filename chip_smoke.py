@@ -11,34 +11,37 @@ Phases, one line each on stdout, in this order:
            then gcc builds the C token flattener (native/flatten.c) and g++
            the webhook's native HTTP front (native/bridge_frontend.cpp);
   native   the C token flattener against the Python encoder: equal token
-           tables and vocab contents and order on 2,000 pods, 2,000
+           tables and vocab contents and order on 1,000 pods, 1,000
            make_mixed objects and one review batch of 256 against an
-           OverlayVocab over a 100,000-pod corpus's vocab; the encode
-           seconds of both on that corpus;
-  parity   1,000 pods x 50 constraints on TorchDriver("cuda"): 4 review
-           batches of 64 identical to the port's own interpreter driver
-           (RegoDriver);
+           OverlayVocab over a 25,000-pod corpus's vocab (the function's
+           defaults 2,000 and 100,000; cut for time); the encode seconds
+           of both on that corpus;
+  parity   250 pods x 50 constraints on TorchDriver("cuda") (the
+           function's default 1,000; cut for time): 4 review batches of 64
+           identical to the port's own interpreter driver (RegoDriver);
   subset   partition-scoped review over the same clients
            (Client.review_many_subset, the constraints split into 3
            subsets): 4 batches of 64, each subset's results equal to the
            interpreter driver's, merged in constraint order equal to the
            whole review_many; K1-K4 must launch;
-  audit_parity  the audit controller on the same clients, 4 host-filesystem
-           join constraints added: AuditManager sweeps from the cache
-           before and after a 2% churn (whole result lists and reports
-           equal to an AuditManager's over the interpreter driver; sweep 2
-           must take the vocab-delta upload), and one direct-list sweep over
-           a FakeCluster holding the churned state, reports equal;
+  audit_parity  the audit controller on the same clients, one
+           host-filesystem join constraint added (the function's default
+           adds 4; cut for time, as in audit_churn, inventory_parity and
+           inventory): AuditManager sweeps from the cache before and after
+           a 2% churn (whole result lists and reports equal to an
+           AuditManager's over the interpreter driver; sweep 2 must take
+           the vocab-delta upload), and one direct-list sweep over a
+           FakeCluster holding the churned state, reports equal;
   webhook_parity  two WebhookServers on 127.0.0.1 over the parity clients
            (a dryrun and a warn constraint added), one over TorchDriver, one
-           over the interpreter driver: 512 AdmissionReviews (violating and
+           over the interpreter driver: 256 AdmissionReviews (violating and
            compliant pods, an excluded namespace, DELETEs with an oldObject,
            Gatekeeper's service account, /v1/admitlabel requests) from 64
            threads over HTTP get equal response bodies by uid; every batch
            takes the fused route and K1-K4 launch;
   ingest_parity  the same two clients behind WebhookServer(ingest=True,
            sched_policy="deadline") with a DecisionLog and an SloEngine:
-           the 512 AdmissionReviews as framed requests with FLAG_DEADLINE
+           the 256 AdmissionReviews as framed requests with FLAG_DEADLINE
            budgets over 8 StreamClient connections from 64 threads, plus 16
            bodies with duplicate keys (the decode fallback). Bodies equal
            by uid across the two drivers and, on TorchDriver, to the same
@@ -46,12 +49,13 @@ Phases, one line each on stdout, in this order:
            zerocopy/fallback/legacy decode counts exact; every batch fused
            and K1-K4 launch;
   bridge_parity  a BridgeStack (the C++ front, deadline_ms 10,000) over the
-           TorchDriver parity client takes the 512 requests over HTTP from
+           TorchDriver parity client takes the 256 requests over HTTP from
            64 threads: bodies equal to the interpreter's by uid, no
            fail-open answer, every batch fused, K1-K4 launch;
   full     the north-star deployment (100,000 pods x 500 constraints): one
-           audit sweep (4 chunks of 32,768 rows) and 8 admission
-           micro-batches of 256 reviews through Client.review_many, with
+           audit sweep (4 chunks of 32,768 rows) and 2 admission
+           micro-batches of 256 reviews (the function's default 8; cut
+           for time) through Client.review_many, with
            the time of each phase (encode, stage, dispatch, decode,
            render); the launch counter of every kernel of that path (K1-K4)
            must be > 0 over that run, and a sample of its reviews must
@@ -67,20 +71,21 @@ Phases, one line each on stdout, in this order:
            activity) for a second, warm-corpus audit sweep and one more
            review batch, after the counted run;
   webhook  the full phase's client behind WebhookServer(window_ms=2.0):
-           1,024 AdmissionReviews of new pods from 256 threads over HTTP
+           512 AdmissionReviews of new pods from 256 threads over HTTP
            keep-alive (the function's default adds 1,024 from 16 threads
            and 4,096 requests; cut for time, as in ingest and
            partitions); per load the request
            latency p50/p99/max, requests per second, batches and their mean
            occupancy, and the driver's phase seconds summed over the
            batches. No batch may fail or leave the fused route, the breaker
-           stays closed, K1-K4 launch, and 64 sampled responses equal the
-           interpreter's answer (_oracle: a RegoDriver client with the
+           stays closed, K1-K4 launch, and 32 sampled responses equal the
+           interpreter's answer (the function's default 64; _oracle: a
+           RegoDriver client with the
            same policy and no synced objects);
   ingest   the same client under sched_policy="deadline" with a
-           DecisionLog, an SloEngine and a Tracer: 1,024 framed requests
+           DecisionLog, an SloEngine and a Tracer: 512 framed requests
            of new pods from 256 callers over 16 connections
-           (WebhookServer(ingest=True), 10,000 ms budgets), then 1,024
+           (WebhookServer(ingest=True), 10,000 ms budgets), then 512
            over HTTP from 256 clients through the C++ front at
            deadline_ms 10,000 (the function's defaults add 1,024 framed
            from 16 callers and 1,024 through the front at its 2,000 ms
@@ -90,10 +95,10 @@ Phases, one line each on stdout, in this order:
            SloEngine's autoscaler(). No batch may fail or leave the fused
            route, no answer at 10,000 ms may fail open, no framed body may
            take the decode fallback, the breaker stays closed, K1-K4
-           launch, and 64 sampled responses equal the interpreter's;
+           launch, and 32 sampled responses equal the interpreter's;
   partitions  the same client behind WebhookServer(partitions=4,
            integrity=IntegrityPlane(), attributor=CostAttributor()):
-           512 requests from 256 callers, every answer equal to the
+           256 requests from 256 callers, every answer equal to the
            monolithic dispatch's and 64 to the interpreter's, no canary
            mismatch, K1-K4 launched by every partition; per partition the
            launches and the attributed against the measured dispatch
@@ -102,22 +107,23 @@ Phases, one line each on stdout, in this order:
            driver.device_dispatch[device=1] (three failed dispatches, the
            breaker opens, partition 1 re-homes, later answers fused);
   audit_churn  the audit controller at full width across cluster churn:
-           the full phase's client, its last 4 constraints swapped for join
-           constraints (the function's default swaps 20; cut for time);
+           the full phase's client, its last constraint swapped for a join
+           constraint (the function's default swaps 20; cut for time);
            sweep 1 takes a full table upload, then 1,000 pods
            go and 1,000 new ones come with strings never interned, and
            sweep 2 must take the vocab-delta upload. Every kernel (K1-K6)
            must launch over the two sweeps, K5 in sweep 2; a sample of rows
            is held against the interpreter;
-  inventory_parity  2,000 mixed-GVK rows (make_mixed: pods, Services,
+  inventory_parity  500 mixed-GVK rows (make_mixed: pods, Services,
            Ingresses, Namespaces) x 50 constraints plus the two uniqueness
            joins (UNIQUE_INGRESS_HOST_REGO, UNIQUE_SERVICE_SELECTOR_REGO):
-           whole audit() and review_many() result lists (2 review batches
+           whole audit() and review_many() result lists (1 review batch
            of 64; cut for time from the default 4) equal to the
            interpreter driver's;
   inventory  BASELINE config #5 at full width (100,000 mixed-GVK rows x
            500 constraints, the two joins among them): one cold audit sweep
-           and 8 review batches of 256, some reusing a host or selector the
+           and 4 review batches of 256 (the function's default 8; cut for
+           time), some reusing a host or selector the
            inventory holds. The uniqueness violations must equal a plain
            grouping of the corpus, every uniqueness render must go through
            the prune index, and K1-K4 must launch;
@@ -135,12 +141,16 @@ Phases, one line each on stdout, in this order:
            from a 5,000-image catalogue; --audit-from-cache, TLS,
            webhook, audit, status, and the process defaults otherwise
            (the integrity plane on, its shadow oracle in a process of its
-           own sampling 1 in 8 admissions). Boot to Ready and to the first
-           sweep, whose violations equal the full phase's; 20
+           own sampling 1 in 8 admissions; the Secret-backed cert store,
+           whose CA every HTTPS client here trusts, and the fleet plane
+           over the stand-in's Secret and FleetState kinds). Boot to
+           Ready and to the first sweep, whose violations equal the full
+           phase's; 20
            ConstraintPodStatus CRs and audit statuses against the full
            phase's Client.audit; 1,000 pods out and 1,000 in through the
            stand-in and a sweep on the vocab-delta upload (K5), its host
-           time sampled by function; 4,096 AdmissionReviews over HTTPS
+           time sampled by function; 1,024 AdmissionReviews over HTTPS
+           (the function's default 4,096; cut for time)
            from 256 callers (no failed, degraded or fail-policy answer,
            none past the 10 s request timeout, no shadow divergence, 64
            against the interpreter), with the oracle's sampled, evaluated,
@@ -164,17 +174,40 @@ Phases, one line each on stdout, in this order:
            template and constraint through the stand-in, at the provider's
            default maxKeysPerRequest (512). One sweep fetches its keys in
            ceil(keys / 512) requests and its violations equal the pods
-           with a flagged image; two HTTPS loads of 1,024 from 256 callers make
+           with a flagged image; two HTTPS loads of 512 from 256 callers make
            at most one fetch per micro-batch, the second (cached keys)
            none; a cache-hit batch of 256 renders no pair of that kind on
            the interpreter; past the TTL that batch refetches (ceil(keys /
            512) requests) and the rows of images flagged meanwhile route back and violate;
+  fleet    two replicas on the card over one stand-in: A, the Runner of
+           the three phases above, and B, python -m
+           gatekeeper_tpu_torch.run as a child (its own CUDA context) at
+           the same config, --operation webhook, the process defaults
+           otherwise and GATEKEEPER_TPU_FAULTS arming
+           driver.device_dispatch=error past 120 dispatches for the
+           breaker's threshold. B boots while A idles; one Secret and one
+           CA verified on both, cert_generation equal; A rotates and B,
+           the same process, presents the new certificate; 256 requests
+           with images never fetched go through A, then through B with no
+           provider request from B and A's answers; 1,024 over 512 new
+           images from 256 callers split over both (the keys fetched
+           fleet-wide over the distinct keys printed; 64 answers against
+           the interpreter); B's armed fault trips its breaker, A's adopts
+           it (HALF_OPEN), A's next batch is one probe that closes it, no
+           answer from A fails or fails open; each /readyz lists the
+           other as its peer with no publish failure; K1-K4 launch for A,
+           B's log names the device, B exits 0 on SIGTERM. It prints the
+           byte size of a FleetState publish at its 512-entry cap;
   process  python -m gatekeeper_tpu_torch.run as a child against a
            stand-in with 1,000 pods x 50 constraints, in the process
-           defaults (discovery audit, --audit-chunk-size 512): /readyz
-           200, /metrics with the audit series, one HTTPS AdmissionReview
-           equal to the interpreter's, the device named in its log, exit
-           0 within the drain grace + 30 s of SIGTERM;
+           defaults (discovery audit, --audit-chunk-size 512, the
+           Secret-backed cert store, the fleet plane): /readyz 200,
+           /metrics with the audit series, one HTTPS AdmissionReview
+           verified by the Secret's CA and equal to the interpreter's,
+           the device named in its log, exit 0 within the drain grace +
+           30 s of SIGTERM. Its stand-in serves no FleetState kind: the
+           fleet plane's publishes fail and are counted
+           (fleet_state_publish_failures_total > 0), serving goes on;
   kernels  each kernel against its plain torch version on inputs the main
            paths gave it (exact equality: every output is
            bool or int, K5's buffers compared byte for byte), with the
@@ -199,8 +232,9 @@ Phases, one line each on stdout, in this order:
            with no synchronize between them, and a segment table it must
            refuse).
 
-The line before the last is the kernel table as one JSON object; the last
-line is {"ok": true, "device": {...}}. Any failing phase raises, and the
+A timeline line gives the seconds at the end of each phase. The line
+before the last is the kernel table as one JSON object; the last line is
+{"ok": true, "device": {...}}. Any failing phase raises, and the
 script exits nonzero without that line; so does a machine without CUDA.
 
     python3 chip_smoke.py --full [--tree DIR]
@@ -216,7 +250,11 @@ build/parent (git archive):
     python3 chip_smoke.py --runner
 
 runs card, build and the runner phase alone on the process defaults
-(its first sweep held against itself, no full phase).
+(its first sweep held against itself, no full phase);
+
+    python3 chip_smoke.py --fleet
+
+runs them, then the extdata, fleet and process phases.
 
     python3 chip_smoke.py --probe [--tree DIR]
 
@@ -323,6 +361,7 @@ PATH_KERNELS = {
                "flush_deltas"),
     "extdata": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "mutation": ("match_matrix",),
+    "fleet": ("match_matrix", "slab_gather", "egroup", "need_tail"),
 }
 
 # A two-array join in the shape of gatekeeper-library's
@@ -3938,6 +3977,7 @@ violation[{"msg": msg}] {
 API_KINDS = (
     ("", "v1", "Pod", "pods", True),
     ("", "v1", "Namespace", "namespaces", False),
+    ("", "v1", "Secret", "secrets", True),
     ("", "v1", "Event", "events", True),
     ("templates.gatekeeper.sh", "v1beta1", "ConstraintTemplate",
      "constrainttemplates", False),
@@ -3958,6 +3998,13 @@ API_KINDS = (
     ("status.gatekeeper.sh", "v1beta1", "MutatorPodStatus",
      "mutatorpodstatuses", True),
 )
+
+
+# the fleet plane's gossip kind: the runner phase registers it (the phases
+# after it run two replicas over it); the process phase's stand-in leaves
+# it out, so that replica takes the reference's degrade path
+FLEETSTATE_KIND = ("fleet.gatekeeper.sh", "v1alpha1", "FleetState",
+                   "fleetstates", True)
 
 
 def catalogue_image(k: int) -> str:
@@ -4392,10 +4439,25 @@ class ApiProcess:
             self._proc.join(timeout=10)
 
 
-def _https_context(rotator):
+def _secret_ca(api) -> bytes:
+    """ca.crt of the fleet's one cert Secret on the stand-in."""
+    import base64
+
+    secrets = api.objects("", "v1", "Secret")
+    if len(secrets) != 1 or set(secrets[0].get("data") or {}) != {
+            "ca.crt", "tls.crt", "tls.key"}:
+        raise AssertionError(
+            f"stand-in: want one Secret with the ca.crt/tls.crt/tls.key "
+            f"triple, got {[(s['metadata'], sorted(s.get('data') or {})) for s in secrets]}")
+    return base64.b64decode(secrets[0]["data"]["ca.crt"])
+
+
+def _https_context(api):
+    """A client TLS context that trusts the CA of the Secret-backed cert
+    store, the one CA every replica serves."""
     import ssl
 
-    return ssl.create_default_context(cafile=rotator.ca_path)
+    return ssl.create_default_context(cadata=_secret_ca(api).decode())
 
 
 def _wait_for(pred, timeout: float, what: str, step: float = 0.1):
@@ -4446,6 +4508,10 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
         api = ApiProcess(n_pods, n_constraints, catalogue=True)
     api.url  # seeded
     seed_s = time.perf_counter() - t0
+    # the fleet plane's gossip kind (the cert Secret is served from the
+    # start): the Runner boots on the process defaults, the Secret-backed
+    # cert store and the fleet plane
+    api.register(*FLEETSTATE_KIND)
     _step("runner", "apiserver seeded", t0)
     work = tempfile.mkdtemp(prefix="gk-smoke-runner-")
     args = runmod.build_parser().parse_args([
@@ -4542,7 +4608,7 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
         try:
             bodies, lat, wall = _drive_http(
                 runner.webhook.port, posts, callers,
-                ssl_ctx=_https_context(runner.webhook.rotator))
+                ssl_ctx=_https_context(api))
         finally:
             gc_https = pauses.close()
             serving = overlap.close()
@@ -4572,6 +4638,7 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
                  "shadow": shadow, "serving": serving}
         print(json.dumps({"phase": "runner", "step": "https load",
                           "https": https}, default=float), flush=True)
+        state["https_p99_s"] = https["p99_s"]
         _check_served("runner", runner.webhook, runner.metrics, client,
                       requests)
         unavailable = sum(_unavailable(b) for b in bodies)
@@ -4797,7 +4864,7 @@ def phase_mutation(rec, state, n_requests: int = 2048, callers: int = 256,
     try:
         bodies, lat, wall = _drive_http(
             runner.webhook.port, posts, callers,
-            ssl_ctx=_https_context(runner.webhook.rotator))
+            ssl_ctx=_https_context(state["api"]))
     finally:
         ops.match_matrix = k1
         del system.screen
@@ -5052,6 +5119,8 @@ def _stop_runner(state):
     runner = state.get("runner")
     if runner is not None:
         runner.stop()
+    if state.get("stub") is not None:
+        state["stub"].close()
     if state.get("cluster") is not None:
         state["cluster"].stop()
     if state.get("api") is not None:
@@ -5144,8 +5213,9 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
     external-data kind on the interpreter; the provider then flags some of
     its images: inside the TTL the batch still passes without a fetch,
     past it the batch refetches (ceil(keys / 512) requests) and its rows
-    with those images route back to the interpreter and violate.
-    -> launches."""
+    with those images route back to the interpreter and violate. The
+    provider and the fetch log stay in `state` for the fleet phase
+    (_stop_runner closes the provider). -> launches."""
     import numpy as np
 
     from gatekeeper_tpu_torch.kernels import ops
@@ -5156,8 +5226,8 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
     rng = np.random.default_rng(RUNNER_SEED + 1)
     flagged = {catalogue_image(int(k)) for k in rng.choice(
         IMAGE_CATALOGUE, int(IMAGE_CATALOGUE * flag_share), replace=False)}
-    stub = StubProvider(flagged)
-    fetches = FetchLog(runner.external_data)
+    stub = state["stub"] = StubProvider(flagged)
+    fetches = state["fetches"] = FetchLog(runner.external_data)
     rec.install()
     try:
         ops.reset_launches()
@@ -5208,6 +5278,7 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
         max_keys = runner.external_data.get(EXT_PROVIDER).max_keys
         per_sweep = -(-first["keys"] // max_keys)
         first["max_keys"] = max_keys
+        state["extdata_sweep_keys"] = first["keys"]
         if first["fetches"] != per_sweep or first["violations"] != want:
             raise AssertionError(
                 f"extdata: sweep made {first['fetches']} fetches and "
@@ -5217,7 +5288,7 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
         # the first also carries images the provider never saw, the
         # second only images the sweep fetched
         seen = api.images()
-        ctx = _https_context(runner.webhook.rotator)
+        ctx = _https_context(api)
         rounds = []
         for b in range(2):
             posts, reqs = [], []
@@ -5334,7 +5405,6 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
         launches = dict(ops.LAUNCHES)
     finally:
         rec.remove()
-        stub.close()
     missing = [k for k in PATH_KERNELS["extdata"] if launches[k] <= 0]
     if missing and drv.device.type == "cuda":
         raise AssertionError(f"extdata: kernels never launched: {missing}")
@@ -5349,6 +5419,436 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
         "provider_requests": len(stub.requests),
         "launches": launches, "seconds": time.perf_counter() - t0,
     }, default=float), flush=True)
+    return launches
+
+
+# -- fleet: a second replica on the same card --------------------------------
+
+FLEET_POD = "gatekeeper-tpu-b"
+
+
+def _readyz(port: int):
+    """(status, document) of a replica's /readyz."""
+    status, text = _http_get(f"http://127.0.0.1:{port}/readyz")
+    try:
+        return status, json.loads(text)
+    except ValueError:
+        return status, {}
+
+
+def _metric(text: str, name: str, **tags) -> float:
+    """The sum of the gatekeeper_<name> samples of a /metrics text whose
+    labels include `tags`."""
+    total = 0.0
+    for ln in text.splitlines():
+        head, _, value = ln.partition(" ")
+        series, _, labels = head.partition("{")
+        if series == "gatekeeper_" + name and all(
+                f'{k}="{v}"' in labels for k, v in tags.items()):
+            total += float(value.split()[0])
+    return total
+
+
+def _leaf_der(api) -> bytes:
+    """DER of the server certificate in the fleet's cert Secret (the
+    first block of its tls.crt chain)."""
+    import base64
+    import ssl
+
+    (secret,) = api.objects("", "v1", "Secret")
+    chain = base64.b64decode(secret["data"]["tls.crt"]).decode()
+    end = "-----END CERTIFICATE-----"
+    return ssl.PEM_cert_to_DER_cert(chain.split(end)[0] + end + "\n")
+
+
+def _served_cert(port: int, ctx) -> bytes:
+    """DER of the certificate a fresh TLS handshake with 127.0.0.1:port
+    presents, verified against `ctx`."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=10) as sock:
+        with ctx.wrap_socket(sock, server_hostname="127.0.0.1") as tls:
+            return tls.getpeercert(binary_form=True)
+
+
+def _force_rotation(rot) -> None:
+    """Rotate as a replica whose certificate entered the 90-day lookahead
+    does (tests/test_fleet.py's forced rotation): the expiry check reads a
+    clock 335 days on, while the new pair is stamped on the real clock
+    (the `cryptography` generator stamps the rotator's clock, the
+    `openssl` one real time, so either way the pair is valid now). The
+    rotator's clock is restored."""
+    import datetime
+
+    real, generate = rot._now, rot.generate_pair
+    future = real() + datetime.timedelta(days=365 - 30)
+
+    def generate_now():
+        rot._now = real
+        return generate()
+
+    rot._now, rot.generate_pair = (lambda: future), generate_now
+    try:
+        rot.ensure()
+    finally:
+        rot._now = real
+        del rot.generate_pair
+
+
+def _fleet_posts(tag: str, n: int, pool, rng, base: int):
+    """n AdmissionReviews of new pods (make_pod's shapes) whose container
+    images are drawn from `pool`. -> (posts, requests, distinct images)."""
+    posts, reqs, images = [], [], set()
+    for j in range(n):
+        pod = make_pod(base + j, name=f"fleet-{tag}-{j}")
+        for ctr in pod["spec"]["containers"]:
+            ctr["image"] = pool[int(rng.integers(len(pool)))]
+            images.add(ctr["image"])
+        req = admission_request(pod, f"fleet-{tag}-{j}")
+        reqs.append(req)
+        posts.append(("/v1/admit", _envelope(req)))
+    return posts, reqs, images
+
+
+def _load_doc(bodies, lat, wall) -> dict:
+    return {"requests": len(bodies), "rps": len(bodies) / wall,
+            "p50_s": _quantile(lat, 0.5), "p99_s": _quantile(lat, 0.99),
+            "max_s": max(lat), "fail_policy": sum(map(_unavailable, bodies))}
+
+
+def _drive_both(loads):
+    """_drive_http(port, posts, callers, ssl_ctx=ctx) for every (port,
+    posts, callers, ctx) of `loads` at once. -> their results in order."""
+    import threading
+
+    out, errors = [None] * len(loads), []
+
+    def run(i, port, posts, callers, ctx):
+        try:
+            out[i] = _drive_http(port, posts, callers, ssl_ctx=ctx)
+        except Exception as e:  # raised below, after both loads end
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, *load))
+               for i, load in enumerate(loads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
+                n_new: int = 512, callers: int = 256, n_sample: int = 64,
+                fault_after: int = 120, drain_grace: float = 1.0,
+                entry=("-m", "gatekeeper_tpu_torch.run"), device="cuda"):
+    """Two replicas on one card against one stand-in. Replica A is the
+    Runner of the runner, mutation and extdata phases (`state`), with its
+    provider; replica B is `python -m gatekeeper_tpu_torch.run` as a child
+    process (a CUDA context of its own, like a second pod) on the same
+    stand-in at the same config (500 constraints, the synced pods),
+    --operation webhook and the process defaults otherwise (the
+    Secret-backed cert store, the fleet plane, the integrity plane), with
+    GATEKEEPER_TPU_FAULTS arming driver.device_dispatch=error past
+    `fault_after` dispatches for the breaker's failure threshold. B boots
+    while A idles, to Ready and then to a warm review path (its warm
+    thread compiles the policy after Ready, /readyz stats.driver
+    review_path_warm); then, in order: (1) one Secret with the triple, TLS
+    handshakes to A and B verified by its CA, equal CA bundles and
+    cert_generation; (2) A rotates (its expiry check moved into the
+    lookahead) and B, the same process, adopts it and presents the new
+    server certificate to a new handshake; (3) n_first requests with
+    images never fetched go through A, then through B once B merged A's
+    entries, with no provider request from B and answers equal to A's;
+    n_mixed requests over n_new new images from `callers` split over both
+    replicas at once, the keys fetched fleet-wide over the distinct keys
+    printed (cold-fetch amplification), n_sample answers against the
+    interpreter; (4) sequential requests to B reach the armed fault, B's
+    device:validation breaker opens (B answers the fail policy), A's
+    breaker adopts it (HALF_OPEN), A's next batch is a single probe that
+    succeeds and closes it, and no answer from A fails or fails open;
+    (5) each /readyz lists the other replica as its peer, component/fleet
+    ready, no publish failure; (6) K1-K4 launched for A's batches, B's log
+    names the device, B's /metrics counted fused batches and no degraded
+    one before the fault, and SIGTERM ends B with exit 0 within the drain
+    grace + 30 s. Also prints the byte size of a FleetState publish at the
+    max_published_entries cap and how many of the extdata sweep's keys a
+    peer can adopt under it. A's response cache is wiped first: the
+    extdata phase's TTL check stamped its refetched entries an hour ahead,
+    and under the cap (newest first) they would crowd out this phase's
+    fetches. `entry` and `device` let a CPU rehearsal start a wrapper that
+    builds the driver on the CPU. -> launches."""
+    import http.client
+    import signal
+    import ssl
+    import tempfile
+
+    import numpy as np
+
+    from gatekeeper_tpu_torch.faults import CLOSED, HALF_OPEN, OPEN
+    from gatekeeper_tpu_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    api, runner = state["api"], state["runner"]
+    stub, fetches = state["stub"], state["fetches"]
+    plane, system = runner.fleet, runner.external_data
+    breaker, rot = runner.webhook.batcher.breaker, runner.webhook.rotator
+    a_port = runner.webhook.port
+    rng = np.random.default_rng(RUNNER_SEED + 2)
+    at_cap = plane.state_obj()
+    sweep_keys = state.get("extdata_sweep_keys", 0)
+    cap = {"max_published_entries": plane.max_published_entries,
+           "cache_entries": len(system.cache),
+           "published_entries": len(at_cap["spec"]["cache"]),
+           "publish_bytes": len(json.dumps(at_cap).encode()),
+           "sweep_keys": sweep_keys,
+           "adoptable_of_sweep": min(sweep_keys,
+                                     plane.max_published_entries)}
+    system.cache.wipe()
+    work = tempfile.mkdtemp(prefix="gk-smoke-fleet-")
+    ports = {k: _free_port() for k in ("webhook", "health", "metrics")}
+    threshold = breaker.failure_threshold
+    faults = (f"driver.device_dispatch=error:after={fault_after}"
+              f":count={threshold}")
+    cmd = [sys.executable, *entry, "--kube-url", api.url,
+           "--port", str(ports["webhook"]),
+           "--health-addr-port", str(ports["health"]),
+           "--prometheus-port", str(ports["metrics"]),
+           "--cert-dir", os.path.join(work, "certs"),
+           "--operation", "webhook", "--pod-name", FLEET_POD,
+           "--drain-grace", str(drain_grace)]
+    env = dict(os.environ, PYTHONPATH=ROOT, GATEKEEPER_TPU_FAULTS=faults)
+    log_path = os.path.join(work, "b.log")
+    out = {"phase": "fleet", "a": runner.pod_name, "b": FLEET_POD,
+           "b_faults": faults, "publish_cap": cap}
+    a_bodies = []
+    rec.install()
+    ops.reset_launches()
+    t_boot = time.perf_counter()
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                 stderr=subprocess.STDOUT)
+    try:
+        _wait_for(lambda: child.poll() is not None
+                  or _readyz(ports["health"])[0] == 200, 900,
+                  "replica B's /readyz", step=0.5)
+        if child.poll() is not None:
+            raise AssertionError(f"fleet: replica B exited {child.returncode}")
+        out["b_boot_to_ready_s"] = time.perf_counter() - t_boot
+        _step("fleet", "B ready", t0)
+        # Ready does not wait for the policy compile (the reference's
+        # semantics); B's warm thread compiles it, and the loads start
+        # once /readyz says the review path is warm
+        _wait_for(lambda: _readyz(ports["health"])[1].get("stats", {}).get(
+            "driver", {}).get("review_path_warm"), 300,
+            "replica B's review path to warm", step=0.2)
+        out["b_boot_to_warm_s"] = time.perf_counter() - t_boot
+        _step("fleet", "B warm", t0)
+
+        # (1) one CA
+        ctx = _https_context(api)
+        with open(os.path.join(work, "certs", "ca.crt"), "rb") as f:
+            b_ca = f.read()
+        leaf = _leaf_der(api)
+        served = [_served_cert(p, ctx) for p in (a_port, ports["webhook"])]
+        fl_b = _readyz(ports["health"])[1]["stats"]["fleet"]
+        out["one_ca"] = {"generation_a": rot.cert_generation,
+                         "generation_b": fl_b["cert_generation"],
+                         "ca_bytes": len(b_ca)}
+        if not (rot.ca_bundle() == b_ca == _secret_ca(api)) or \
+                served != [leaf, leaf] or \
+                fl_b["cert_generation"] != rot.cert_generation:
+            raise AssertionError(f"fleet: not one CA: {out['one_ca']}")
+
+        # (2) rotation on A, adopted by B without a restart
+        adopted0 = fl_b["cert_rotations_adopted"]
+        t_w = time.perf_counter()
+        _force_rotation(rot)
+        t_written = time.perf_counter()
+        new_ctx = _https_context(api)
+        new_leaf = _leaf_der(api)
+
+        def b_serves_new():
+            try:
+                return _served_cert(ports["webhook"], new_ctx) == new_leaf
+            except (ssl.SSLError, OSError):
+                return False
+
+        _wait_for(b_serves_new, 60, "replica B to serve the rotated pair",
+                  step=0.01)
+        handshake_s = time.perf_counter() - t_written
+        fl_b = _readyz(ports["health"])[1]["stats"]["fleet"]
+        out["rotation"] = {
+            "ensure_s": t_written - t_w, "write_to_b_handshake_s": handshake_s,
+            "generation_a": rot.cert_generation,
+            "generation_b": fl_b["cert_generation"],
+            "b_rotations_adopted": fl_b["cert_rotations_adopted"],
+            "b_pid": child.pid, "b_alive": child.poll() is None}
+        if fl_b["cert_rotations_adopted"] < adopted0 + 1 or \
+                fl_b["cert_generation"] != rot.cert_generation or \
+                child.poll() is not None or new_leaf == leaf or \
+                _served_cert(a_port, new_ctx) != new_leaf:
+            raise AssertionError(f"fleet: rotation: {out['rotation']}")
+        _step("fleet", "rotated", t0)
+
+        # (3) cache gossip
+        posts, reqs, keys = _fleet_posts(
+            "a", n_first, [f"nginx/fleet-a{k:03d}:v1" for k in range(n_first)],
+            rng, 6_000_000)
+        merged0 = _readyz(ports["health"])[1]["stats"]["fleet"]["cache_merged"]
+        s0 = len(stub.requests)
+        bodies_a, lat, wall = _drive_http(a_port, posts, callers,
+                                          ssl_ctx=new_ctx)
+        a_bodies += bodies_a
+        first = {"keys": len(keys), "a": _load_doc(bodies_a, lat, wall),
+                 "a_fetches": len(stub.requests) - s0}
+        t_g = time.perf_counter()
+        _wait_for(lambda: _readyz(ports["health"])[1]["stats"]["fleet"][
+            "cache_merged"] >= merged0 + len(keys), 60,
+            "replica B to merge A's entries", step=0.02)
+        first["b_merge_wait_s"] = time.perf_counter() - t_g
+        s1, f1 = len(stub.requests), len(fetches.calls)
+        bodies_b, lat, wall = _drive_http(ports["webhook"], posts, callers,
+                                          ssl_ctx=new_ctx)
+        first["b"] = _load_doc(bodies_b, lat, wall)
+        first["b_provider_requests"] = (len(stub.requests) - s1) - (
+            len(fetches.calls) - f1)
+        out["first"] = first
+        if first["b_provider_requests"] or first["a"]["fail_policy"] or \
+                first["b"]["fail_policy"] or any(
+                    _response_fields(x) != _response_fields(y)
+                    for x, y in zip(bodies_a, bodies_b)):
+            raise AssertionError(f"fleet: cache gossip: {first}")
+        posts, reqs, keys = _fleet_posts(
+            "m", n_mixed, [f"nginx/fleet-m{k:03d}:v1" for k in range(n_new)],
+            rng, 7_000_000)
+        s2 = len(stub.requests)
+        (ba, la, wa), (bb, lb, wb) = _drive_both([
+            (a_port, posts[0::2], callers // 2, new_ctx),
+            (ports["webhook"], posts[1::2], callers // 2, new_ctx)])
+        a_bodies += ba
+        fetched = [k for r in stub.requests[s2:] for k in r]
+        mixed = {"keys": len(keys), "keys_fetched": len(fetched),
+                 "amplification": len(fetched) / len(keys),
+                 "provider_requests": len(stub.requests) - s2,
+                 "a": _load_doc(ba, la, wa), "b": _load_doc(bb, lb, wb)}
+        out["mixed"] = mixed
+        if mixed["a"]["fail_policy"] or mixed["b"]["fail_policy"] or \
+                set(fetched) != keys:
+            raise AssertionError(f"fleet: mixed load: {mixed}")
+        oracle = _oracle(runner.client)
+        step = max(1, n_mixed // n_sample)
+        answered = [None] * n_mixed
+        answered[0::2], answered[1::2] = ba, bb
+        for i in range(0, n_mixed, step):
+            if _response_fields(answered[i]) != _expected_response(
+                    oracle, reqs[i]):
+                raise AssertionError(
+                    f"fleet: answer to {reqs[i]['uid']} differs from the "
+                    "interpreter")
+        mixed["sample_checked"] = len(range(0, n_mixed, step))
+        _step("fleet", "cache gossip", t0)
+
+        # (4) breaker gossip: B reaches its armed fault and trips
+        text = _http_get(f"http://127.0.0.1:{ports['metrics']}/metrics")[1]
+        pre = {"b_batches": _metric(text, "webhook_batches_total"),
+               "b_degraded": _metric(text, "webhook_degraded_dispatch_total")}
+        if pre["b_batches"] <= 0 or pre["b_degraded"]:
+            raise AssertionError(f"fleet: B before the fault: {pre}")
+        conn = http.client.HTTPSConnection("127.0.0.1", ports["webhook"],
+                                           timeout=60, context=new_ctx)
+        failed, sent, t_trip = 0, 0, None
+        try:
+            while sent < fault_after + 4 * threshold and t_trip is None:
+                req = admission_request(
+                    make_pod(8_000_000 + sent, name=f"fleet-trip-{sent}"),
+                    f"fleet-trip-{sent}")
+                conn.request("POST", "/v1/admit", _envelope(req),
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                sent += 1
+                if _unavailable(body):
+                    failed += 1
+                    if failed == threshold:
+                        t_trip = time.perf_counter()
+                elif failed:
+                    raise AssertionError(
+                        "fleet: B answered a fused batch between failures")
+        finally:
+            conn.close()
+        if t_trip is None:
+            raise AssertionError(f"fleet: B's fault never fired ({sent} sent)")
+        b_state = _readyz(ports["health"])[1]["stats"]["webhook"]["breaker"]
+        _wait_for(lambda: breaker.state == HALF_OPEN, 30,
+                  "A's breaker to adopt B's trip", step=0.002)
+        adopt_s = time.perf_counter() - t_trip
+        probe, lat, _wall = _drive_http(a_port, posts[:1], 1, ssl_ctx=new_ctx)
+        a_bodies += probe
+        trip = dict(pre, sent_to_trip=sent, b_failed=failed,
+                    b_breaker=b_state["state"], trip_to_adoption_s=adopt_s,
+                    a_breaker_after_probe=breaker.state, probe_s=lat[0],
+                    a_adoptions=plane.breaker_adoptions)
+        out["breaker"] = trip
+        if b_state["state"] != OPEN or breaker.state != CLOSED or \
+                plane.breaker_adoptions < 1 or \
+                any(map(_unavailable, a_bodies)):
+            raise AssertionError(f"fleet: breaker gossip: {trip}")
+        # not required: A's CLOSED lets B's open breaker probe early
+        t_r = time.perf_counter()
+        _wait_for(lambda: _readyz(ports["health"])[1]["stats"]["webhook"][
+            "breaker"]["state"] != OPEN, 40, "B's breaker to leave OPEN")
+        trip["b_left_open_s"] = time.perf_counter() - t_r
+        _step("fleet", "breaker gossip", t0)
+
+        # (5) /readyz on both
+        (st_a, doc_a), (st_b, doc_b) = (_readyz(runner.readyz_port),
+                                        _readyz(ports["health"]))
+        fa, fb = doc_a["stats"]["fleet"], doc_b["stats"]["fleet"]
+        out["readyz"] = {"a": fa, "b": fb,
+                         "a_component": doc_a["stats"]["component/fleet"],
+                         "b_component": doc_b["stats"]["component/fleet"]}
+        # A's status is printed, not required: a constraint kind created
+        # after Ready (extdata's) leaves its readiness tracker unpopulated,
+        # so A answers 503 (ROADMAP §C)
+        out["readyz"].update(a_status=st_a, b_status=st_b)
+        for doc, fl, peer in ((doc_a, fa, FLEET_POD),
+                              (doc_b, fb, runner.pod_name)):
+            comp = doc["stats"]["component/fleet"]
+            if fl["peers"] != [peer] or fl["publish_failures"] or \
+                    comp["expected"] != comp["observed"] or st_b != 200:
+                raise AssertionError(f"fleet: /readyz: {out['readyz']}")
+        launches = dict(ops.LAUNCHES)
+
+        # (6) B ends on SIGTERM
+        t_term = time.perf_counter()
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=drain_grace + 30)
+        out["b_sigterm"] = {"exit": rc, "seconds": time.perf_counter() - t_term}
+        if rc != 0:
+            raise AssertionError(f"fleet: SIGTERM gave B exit {rc}")
+    except BaseException:
+        _print_tail(log_path, 40)
+        raise
+    finally:
+        rec.remove()
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+    with open(log_path) as f:
+        start = [ln for ln in f.read().splitlines()
+                 if '"starting gatekeeper-tpu"' in ln]
+    if not start or f'"device": "{device}' not in start[0]:
+        raise AssertionError(f"fleet: B's log names no device: {start}")
+    missing = [k for k in PATH_KERNELS["fleet"] if launches[k] <= 0]
+    if missing and runner.client._driver.device.type == "cuda":
+        raise AssertionError(f"fleet: kernels never launched for A: {missing}")
+    out.update(b_start_log=json.loads(start[0]), launches=launches,
+               runner_load_p99_s=state.get("https_p99_s"),
+               seconds=time.perf_counter() - t0)
+    print(json.dumps(out, default=float), flush=True)
     return launches
 
 
@@ -5378,12 +5878,17 @@ def phase_process(n_pods: int = 1000, n_constraints: int = 50,
                   entry=("-m", "gatekeeper_tpu_torch.run"), device="cuda"):
     """`python -m gatekeeper_tpu_torch.run` as a child process against an
     ApiServer with n_pods pods x n_constraints constraints, in the
-    process defaults (discovery-mode audit, --audit-chunk-size 512): its
-    /readyz answers 200, its /metrics serves the audit series, one HTTPS
-    AdmissionReview equals the interpreter's answer, its log names the
-    CUDA device, and SIGTERM ends it with exit 0 within the drain grace
-    plus 30 s. `entry` and `device` let a CPU rehearsal start a wrapper
-    that builds the driver on the CPU."""
+    process defaults (discovery-mode audit, --audit-chunk-size 512, the
+    Secret-backed cert store, the fleet plane): its /readyz answers 200,
+    its /metrics serves the audit series, one HTTPS AdmissionReview
+    verified by the Secret's CA equals the interpreter's answer, its log
+    names the CUDA device, and SIGTERM ends it with exit 0 within the
+    drain grace plus 30 s. The stand-in serves no FleetState kind, so the
+    fleet plane takes the reference's degrade path: its publishes fail and
+    are counted (fleet_state_publish_failures_total on /metrics,
+    publish_failures on /readyz), and serving goes on. `entry` and
+    `device` let a CPU rehearsal start a wrapper that builds the driver on
+    the CPU."""
     import signal
     import tempfile
 
@@ -5424,11 +5929,16 @@ def phase_process(n_pods: int = 1000, n_constraints: int = 50,
                          or ln.startswith("gatekeeper_violations")})
         violations = [ln for ln in text.splitlines()
                       if ln.startswith("gatekeeper_violations")]
-        # one HTTPS AdmissionReview, verified against the child's CA
-        import ssl
-
-        ctx = ssl.create_default_context(
-            cafile=os.path.join(work, "certs", "ca.crt"))
+        # the degrade path: no FleetState kind, publishes fail, counted
+        degrade = {
+            "publish_failures_total": _metric(
+                text, "fleet_state_publish_failures_total"),
+            "readyz": _readyz(ports["health"])[1]["stats"]["fleet"]}
+        if not degrade["publish_failures_total"] or \
+                not degrade["readyz"]["publish_failures"]:
+            raise AssertionError(f"process: fleet degrade path: {degrade}")
+        # one HTTPS AdmissionReview, verified by the Secret's CA
+        ctx = _https_context(api)
         pod = make_pod(503, name="process-admit")
         req = admission_request(pod, "process-1")
         (body,), _lat, _wall = _drive_http(
@@ -5461,7 +5971,7 @@ def phase_process(n_pods: int = 1000, n_constraints: int = 50,
         "phase": "process", "pods": n_pods, "constraints": n_constraints,
         "ready_s": ready_s, "audit_series": series,
         "violations": violations, "allowed": body["response"]["allowed"],
-        "sigterm_exit": rc, "sigterm_s": term_s,
+        "fleet_degrade": degrade, "sigterm_exit": rc, "sigterm_s": term_s,
         "start_log": json.loads(device_lines[0]),
         "seconds": time.perf_counter() - t0,
     }), flush=True)
@@ -5981,6 +6491,24 @@ def phase_full_alone(tree=None):
     smoke.phase_full("cuda")
 
 
+class Timeline:
+    """Seconds since the smoke started at the end of each phase: the line
+    that says which phase's depth to cut when the smoke nears its time
+    limit."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.marks = {}
+
+    def __call__(self, phase: str) -> None:
+        self.marks[phase] = round(time.perf_counter() - self.t0, 1)
+
+    def print(self) -> None:
+        print(json.dumps({"phase": "timeline", "ended_at_s": self.marks,
+                          "seconds": time.perf_counter() - self.t0}),
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5996,66 +6524,116 @@ def main() -> int:
         phase_full_alone(sys.argv[sys.argv.index("--tree") + 1]
                          if "--tree" in sys.argv else None)
         return 0
-    if "--runner" in sys.argv:
+    if "--runner" in sys.argv or "--fleet" in sys.argv:
         # the runner phase alone on the process defaults (its first
-        # sweep's violations are not held against a full phase)
+        # sweep's violations are not held against a full phase); with
+        # --fleet, then extdata, fleet and process on it
         sys.path.insert(0, ROOT)
         phase_card()
         api = ApiProcess(100_000, 500, catalogue=True)
         phase_build()
         from gatekeeper_tpu_torch.kernels import ops
 
-        _, state = phase_runner(Recorder(ops), None, api=api)
-        _stop_runner(state)
+        mark = Timeline()
+        rec = Recorder(ops)
+        _, state = phase_runner(rec, None, api=api)
+        mark("runner")
+        try:
+            if "--fleet" in sys.argv:
+                phase_extdata(rec, state)
+                mark("extdata")
+                phase_fleet(rec, state)
+                mark("fleet")
+        finally:
+            _stop_runner(state)
+        if "--fleet" in sys.argv:
+            phase_process()
+            mark("process")
+        mark.print()
         return 0
     if not os.path.isdir(os.path.join(ROOT, "gatekeeper_tpu_torch")):
         print("chip_smoke: gatekeeper_tpu_torch not found beside this "
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    mark = Timeline()
     phase_card()
     # the runner phase's apiserver stand-in seeds its 100,000 pods in a
     # process of its own while the phases before it run
     runner_api = ApiProcess(100_000, 500, catalogue=True)
     phase_build()
-    phase_native()
-    port, ref, drv = phase_parity("cuda")
+    phase_native(n_check=1000, n_corpus=25_000)
+    mark("native")
+    port, ref, drv = phase_parity("cuda", n_pods=250)
     launches_subset = phase_subset(port, ref, drv)
-    phase_audit_parity(port, ref, drv)
-    launches_wh_parity, fifo_fields = phase_webhook_parity(port, ref, drv)
+    mark("subset")
+    # the depth of native (1,000 checked objects and a 25,000-pod corpus,
+    # not 2,000 and 100,000), the parity clients (250 pods, not 1,000),
+    # the three parity phases over HTTP (256 requests, not 512),
+    # audit_parity and audit_churn (one join constraint each, not 4), full
+    # (2 review batches, not 8), webhook and ingest (half the requests, 32
+    # sampled answers, not 64), partitions (half the requests),
+    # inventory_parity (500 rows and 1 review batch, not
+    # 2,000 and 2), inventory (2 review batches, not 8), runner (1,024
+    # requests, not 4,096) and extdata (loads of 512, not 1,024) is cut,
+    # widths and callers kept, so that the fleet phase fits the smoke's
+    # time limit
+    phase_audit_parity(port, ref, drv, n_pods=250, n_join=1)
+    mark("audit_parity")
+    launches_wh_parity, fifo_fields = phase_webhook_parity(port, ref, drv,
+                                                           n=256)
     launches_ing_parity, interp_bodies = phase_ingest_parity(
-        port, ref, drv, fifo_fields)
-    launches_br_parity = phase_bridge_parity(port, drv, interp_bodies)
+        port, ref, drv, fifo_fields, n=256)
+    launches_br_parity = phase_bridge_parity(port, drv, interp_bodies, n=256)
+    mark("bridge_parity")
     del port, ref, drv
-    rec, launches_full, client, drv, full_counts = phase_full("cuda")
+    rec, launches_full, client, drv, full_counts = phase_full("cuda",
+                                                              n_batches=2)
     phase_analysis("full", client, drv)
-    # the depth of these five phases is cut (fewer batches, requests and
-    # join constraints, no second load; widths and callers kept) so that
-    # the process phases below fit the smoke's time limit
+    mark("full")
+    # the depth of these phases is cut (fewer batches, requests and join
+    # constraints, no second load; widths and callers kept) so that the
+    # process phases below fit the smoke's time limit
     launches_live = phase_liveness(client, drv, rec, n_batches=2)
     phase_profile(client, drv)
-    launches_webhook = phase_webhook(client, drv, loads=((1024, 256),))
-    launches_ingest = phase_ingest(client, drv, framed=((1024, 256, 16),),
-                                   bridged=((1024, 256, 10_000),))
-    launches_part = phase_partitions(client, drv, rec, n=512)
-    launches_churn = phase_audit_churn(client, drv, rec, n_join=4)
+    mark("profile")
+    launches_webhook = phase_webhook(client, drv, loads=((512, 256),),
+                                     n_sample=32)
+    launches_ingest = phase_ingest(client, drv, framed=((512, 256, 16),),
+                                   bridged=((512, 256, 10_000),), n_sample=32)
+    mark("ingest")
+    launches_part = phase_partitions(client, drv, rec, n=256)
+    mark("partitions")
+    launches_churn = phase_audit_churn(client, drv, rec, n_join=1)
+    mark("audit_churn")
     del client, drv  # the pod-only cluster; the mixed one comes next
     torch.cuda.empty_cache()
-    phase_inventory_parity("cuda", n_batches=2)
-    client, drv, pairs, launches_inv = phase_inventory("cuda", rec)
+    phase_inventory_parity("cuda", n_rows=500, n_batches=1)
+    mark("inventory_parity")
+    client, drv, pairs, launches_inv = phase_inventory("cuda", rec,
+                                                       n_batches=2)
     phase_analysis("inventory", client, drv)
+    mark("inventory")
     launches_out = phase_full_output(client, drv, rec, pairs)
+    mark("full_output")
     del client, drv
     torch.cuda.empty_cache()
-    launches_runner, state = phase_runner(rec, full_counts, api=runner_api)
+    launches_runner, state = phase_runner(rec, full_counts, n_requests=1024,
+                                          api=runner_api)
+    mark("runner")
     try:
         launches_mut, k1_mutation = phase_mutation(rec, state)
-        launches_ext = phase_extdata(rec, state)
+        mark("mutation")
+        launches_ext = phase_extdata(rec, state, n_requests=512)
+        mark("extdata")
+        launches_fleet = phase_fleet(rec, state)
+        mark("fleet")
     finally:
         _stop_runner(state)
     del state
     torch.cuda.empty_cache()
     phase_process()
+    mark("process")
     rows = phase_kernels(
         rec, {"subset": launches_subset, "webhook_parity": launches_wh_parity,
               "ingest_parity": launches_ing_parity,
@@ -6066,10 +6644,13 @@ def main() -> int:
               "audit_churn": launches_churn,
               "inventory": launches_inv, "full_output": launches_out,
               "runner": launches_runner, "mutation": launches_mut,
-              "extdata": launches_ext},
+              "extdata": launches_ext, "fleet": launches_fleet},
         extra={"match_matrix": {"mutation_screen": k1_mutation}},
     )
+    mark("kernels")
     phase_variants()
+    mark("variants")
+    mark.print()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "ok": True,

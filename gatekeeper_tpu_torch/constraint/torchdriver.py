@@ -33,9 +33,12 @@ columns no compiled program can read are dropped before padding
 (`columns_skipped_static`); the audit corpus encodes keep-all.
 
 Every micro-batch goes to the device: PyTorch compiles nothing, so there
-is no cold kernel to serve around and no small-batch interpreter route. A
-partition-scoped review (`query_many_subset`) is one fused dispatch of a
-constraint set cut to the subset, behind the fault point
+is no cold kernel to serve around and no small-batch interpreter route.
+Every fused need dispatch passes the fault point `driver.device_dispatch`,
+as the reference's does; a failure there is raised to the caller (the
+webhook answers the batch with its fail policy), never answered on the
+host. A partition-scoped review (`query_many_subset`) is one fused
+dispatch of a constraint set cut to the subset, behind the fault point
 `driver.device_dispatch[device=N]`; its set carries forward across a
 constraint generation whose content signature for the subset is
 unchanged, and `prepare_subset` stages a changed one as a shadow and
@@ -59,9 +62,13 @@ prefetches its deduped keys (one outbound fetch per provider); the
 feature's per-row bits are computed from the live response cache on every
 dispatch and staged volatile, never cached on the corpus, so a TTL expiry
 routes the rows back to the interpreter's re-check. Not carried over from
-TpuDriver (see ROADMAP.md): the program store, the warm path
-(`review_path_warm`, `warm_review_path`; nothing compiles here) and the
-per-query pair/render/phase metric series.
+TpuDriver (see ROADMAP.md): the program store and the per-query
+pair/render/phase metric series. The warm path is the reference's minus
+the interpreter: `warm_review_path` compiles and stages the policy, and
+encodes the audit corpus a policy with row features overlays, ahead of
+the first batch (a batch that comes first waits for it on the serving
+mutex, never goes to the interpreter), and `review_path_warm` says
+whether it has for the current constraints.
 """
 
 from __future__ import annotations
@@ -228,6 +235,8 @@ class TorchDriver(RegoDriver):
         self._constraint_gen = 0
         self._corpus: Dict[str, _Corpus] = {}
         self._cset: Dict[str, _ConstraintSet] = {}
+        # target -> the constraint generation warm_review_path compiled
+        self._review_warm: Dict[str, int] = {}
         # partition-scoped sets per (target, subset of constraint keys),
         # oldest dropped first past _cset_sub_max
         self._cset_sub: "OrderedDict[Tuple[str, frozenset], _ConstraintSet]" = (
@@ -690,6 +699,34 @@ class TorchDriver(RegoDriver):
             for c, p in zip(constraints, programs)
             if p is None and isinstance(c.get("kind"), str)
         }
+
+    def warm_review_path(self, target: str, reviews: Sequence[Any]) -> bool:
+        """The first admission batch's one-time host work, done ahead of
+        it under the serving mutex: compile `target`'s constraint set (the
+        symbolic compile of each template's program) and stage its policy
+        on the device, then encode `reviews` as a batch is encoded,
+        without a dispatch; for a set with row features that encodes the
+        audit corpus whose vocab every batch overlays (the reference's
+        warm path pays it too). The Runner's warm thread calls it through
+        Client.warm_review_path once the state is ingested and after each
+        constraint change. No kernel compiles per batch shape."""
+        with self._mutex:
+            gen = self._constraint_gen
+            cs = self._constraint_set(target)
+            reviews = list(reviews)
+            if cs is not None:
+                self._staged_policy(target, cs)
+                if reviews:
+                    self._ephemeral_corpus(
+                        target, cs, reviews, self._ns_cache(target)
+                    )
+            self._review_warm[target] = gen
+        return True
+
+    def review_path_warm(self, target: str) -> bool:
+        """True when warm_review_path compiled `target`'s set for the
+        current constraint generation."""
+        return self._review_warm.get(target) == self._constraint_gen
 
     def constraint_generation(self) -> int:
         """Constraint/template churn only (the base driver's data version
@@ -1167,6 +1204,10 @@ class TorchDriver(RegoDriver):
                 volatile=[n for n in needed if n.startswith("extdata:")],
             )
         t1 = time.perf_counter()
+        # named fault point: "error" fails the fused dispatch of a sweep
+        # or a batch (a batch's requests then get the fail policy), "hang"
+        # stalls it
+        fire("driver.device_dispatch")
         packed, hot, n_hot, sc, si = self.kernel.dispatch_need_all(
             policy, stacked, (corpus.g, corpus.g1), r_cap=R_CAP
         )

@@ -1,5 +1,5 @@
 """Control plane: state ingestion, readiness, process runtime (a copy of
-gatekeeper_tpu/control without the fleet plane).
+gatekeeper_tpu/control).
 
 The reference's equivalents live under pkg/controller/, pkg/watch/,
 pkg/readiness/, and main.go; here the same architecture runs against an

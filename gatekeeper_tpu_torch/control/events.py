@@ -1,6 +1,4 @@
-# Copied from gatekeeper_tpu/control/events.py; only these edits differ.
-# Edit: `Conflict` and `FakeCluster.create` (the fleet plane's
-# create-only write) are left out.
+# Copied from gatekeeper_tpu/control/events.py; unchanged.
 """Event fabric: the K8s-API-server stand-in the controllers watch.
 
 The reference's control fabric is the Kubernetes API server — all state
@@ -78,6 +76,13 @@ class Event:
 EventSink = Callable[[Event], None]
 
 
+class Conflict(Exception):
+    """create() lost a create race: the object already exists. The
+    fleet plane's load-or-create motions (Secret-backed cert store)
+    catch this to adopt the winner's state instead of overwriting it —
+    the apiserver's 409 on POST, surfaced identically by the fake."""
+
+
 class EventSource:
     """The list+watch contract (client-go informer surface)."""
 
@@ -134,6 +139,24 @@ class FakeCluster(EventSource):
             store[key] = obj
             sinks = [s for _, s in self._subs.get(gvk, [])]
         ev = Event(etype, gvk, obj)
+        for s in sinks:
+            s(ev)
+
+    def create(self, obj: Dict[str, Any]) -> None:
+        """Create-ONLY write: raises `Conflict` when the object already
+        exists (the apiserver's 409 on POST). Unlike apply(), two racing
+        creators cannot both win — the loser must re-read the winner's
+        object, which is exactly the load-or-create contract the fleet
+        cert store builds on (certs.go:119-181)."""
+        gvk = GVK.from_obj(obj)
+        key = obj_key(obj)
+        with self._lock:
+            store = self._objs.setdefault(gvk, {})
+            if key in store:
+                raise Conflict(f"{gvk}/{key[0]}/{key[1]} already exists")
+            store[key] = obj
+            sinks = [s for _, s in self._subs.get(gvk, [])]
+        ev = Event(ADDED, gvk, obj)
         for s in sinks:
             s(ev)
 

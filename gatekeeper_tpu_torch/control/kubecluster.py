@@ -1,6 +1,4 @@
 # Copied from gatekeeper_tpu/control/kubecluster.py; only these edits differ.
-# Edit: `KubeCluster.create` (the fleet cert store's create-only write,
-# ROADMAP A10) is left out, with the `Conflict` it raises.
 # Edit: `subscribe` keeps the EventSource contract (events from now on):
 # its first List runs synchronously and emits nothing (`_Watcher.prime`).
 # The reference's watcher emitted ADDED for every listed object on top of
@@ -48,6 +46,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from ..logs import null_logger
 from .events import (
     ADDED,
+    Conflict,
     DELETED,
     Event,
     EventSink,
@@ -346,6 +345,21 @@ class KubeCluster(EventSource):
         return self._collection_path(
             GVK.from_obj(obj), meta.get("namespace") or ""
         )
+
+    def create(self, obj: Dict[str, Any]) -> None:
+        """Create-ONLY write: POST, with the apiserver's 409 surfaced as
+        `events.Conflict` instead of retried into a replace. The fleet
+        cert store's load-or-create depends on losing this race loudly —
+        the loser adopts the winner's Secret rather than clobbering it
+        (certs.go:119-181's CreateOrUpdate-with-conflict posture)."""
+        coll = self._obj_path(obj)
+        try:
+            self._request("POST", coll, body=obj)
+        except KubeError as e:
+            if e.code == 409:
+                name = (obj.get("metadata") or {}).get("name", "")
+                raise Conflict(f"{coll}/{name} already exists") from e
+            raise
 
     def apply(self, obj: Dict[str, Any]) -> None:
         """Create-or-replace (the status plane's write-with-retry,

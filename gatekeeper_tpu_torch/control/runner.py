@@ -1,20 +1,19 @@
 # Copied from gatekeeper_tpu/control/runner.py; only these edits differ.
 # Edit: planes that are not ported are left out with their arguments and
-# wiring: the fleet plane (`fleet`, `cert_secret`, `fleet_namespace`,
-# `FleetPlane`, `SecretCertStore`, `FleetCertRotator`, cache and breaker
-# gossip; ROADMAP A10), the `FlightRecorder` (A10; the SloEngine and the
-# IntegrityPlane get recorder=None, and /debug/flightrecords is not
-# served) and the agent plane (A10). TLS uses the pod-local `CertRotator`
-# in `cert_dir`, the reference's single-replica path. The /readyz document
-# drops the fleet block.
+# wiring: the `FlightRecorder` (ROADMAP A10; the SloEngine and the
+# IntegrityPlane get recorder=None, /debug/flightrecords is not served and
+# no state source is registered, the fleet plane's included) and the agent
+# plane (A10; no `device:agent` breaker gossips).
 # Edit: the MutationSystem screens on the driver's device (its `device`;
 # the card unless the caller asked for the CPU).
 # Edit: `capture_jax_profile` is `capture_torch_profile`: /debug/profile
 # writes a torch.profiler Chrome trace.
-# Edit: TorchDriver has no `set_metrics`, `review_path_warm` or
-# `warm_review_path` (nothing compiles): the Runner reaches them through
-# getattr as the reference does, so the warm thread runs the webhook's
-# warmup once and ends.
+# Edit: TorchDriver has no `set_metrics`; the Runner reaches it through
+# getattr as the reference does. Its `warm_review_path` compiles and
+# stages the policy, so the warm thread warms the review path as the
+# reference's does, and /readyz `stats.driver` carries
+# `review_path_warm`: a webhook-only replica is Ready before its policy
+# is compiled, and its first batch would otherwise compile it.
 # Edit: stop() also closes the readyz listener's socket.
 # Edit: the webhook's Namespace lookups read a cache fed by a Namespace
 # watch (registrar "namespace-cache"), asking the apiserver only on a
@@ -141,6 +140,20 @@ class Runner:
         # constraint subset instead of tripping the whole plane. 0 =
         # monolithic dispatch (the pre-partition behavior).
         partitions: int = 0,
+        # fleet plane (docs/fleet.md): CR-backed gossip making the
+        # external-data cache and breaker trips fleet properties.
+        # True builds a FleetPlane keyed by pod_name; pass an existing
+        # FleetPlane to share one across in-process replicas in tests;
+        # False disables (pure per-process state)
+        fleet=True,
+        # name of the Secret backing the SHARED cert store (the
+        # reference's mounted cert Secret, certs.go:119-181): replicas
+        # load-or-create one CA and pick up rotation via watch without
+        # restart. None = pod-local CertRotator in cert_dir (single
+        # replica / hermetic tests). Needs webhook_tls.
+        cert_secret: Optional[str] = None,
+        # namespace holding the cert Secret and FleetState CRs
+        fleet_namespace: str = "gatekeeper-system",
         # graceful drain (docs/robustness.md): seconds /readyz reports
         # not-ready while the webhook listener still accepts, so the
         # LB/kubelet routes away before connections start failing
@@ -274,10 +287,27 @@ class Runner:
         self.webhook_tls = webhook_tls
         self.vwh_name = vwh_name
         self.cert_dir = cert_dir
+        self.cert_secret = cert_secret
+        self.fleet_namespace = fleet_namespace
         self.bind_addr = bind_addr
         self.ca_injector = None
         self.webhook = None
         self.audit = None
+        # fleet state plane (docs/fleet.md): built here so the
+        # external-data system below can attach before any provider
+        # ingests; started (watch + first publish) in start()
+        from ..fleet import FleetPlane
+
+        if fleet is True:
+            self.fleet = FleetPlane(
+                cluster,
+                replica_id=pod_name,
+                namespace=fleet_namespace,
+                metrics=metrics,
+                logger=self.log.with_values(process="fleet"),
+            )
+        else:
+            self.fleet = fleet or None
         self._readyz_httpd: Optional[ThreadingHTTPServer] = None
         from ..webhook.policy import TraceConfig
 
@@ -368,6 +398,10 @@ class Runner:
         self.external_data = ExternalDataSystem(
             metrics=metrics, tracer=self.tracer, logger=self.log
         )
+        if self.fleet is not None:
+            # cache entries publish to peers; per-provider breakers
+            # gossip as providers ingest (docs/fleet.md)
+            self.fleet.attach_cache(self.external_data)
         set_ed = getattr(client, "set_external_data", None)
         if set_ed is not None:
             set_ed(self.external_data)
@@ -489,6 +523,17 @@ class Runner:
 
         self._populate_expectations()
 
+        if self.fleet is not None:
+            # readiness: the state plane must have listed peers and
+            # offered its first publish before the replica reports
+            # Ready (start() below is synchronous; publish failures on
+            # a cluster without the CRD degrade, never block)
+            comp = self.tracker.for_component("fleet")
+            comp.expect("state-plane")
+            comp.expectations_done()
+            self.fleet.start()
+            comp.observe("state-plane")
+
         # watch registration order mirrors setupControllers: templates
         # first (they create constraint kinds), then config (it swaps the
         # sync watches), status kinds for the aggregator
@@ -505,6 +550,33 @@ class Runner:
             from ..webhook.server import WebhookServer
 
             self._namespace_registrar.add_watch(NAMESPACE_GVK)
+
+            rotator = None
+            if self.webhook_tls and self.cert_secret:
+                # the Secret-backed shared cert store: one CA per
+                # fleet, rotation picked up by peers without restart
+                # (docs/fleet.md; certs.go:119-181 behaviorally)
+                import tempfile
+
+                from ..fleet import FleetCertRotator, SecretCertStore
+
+                store = SecretCertStore(
+                    self.cluster,
+                    name=self.cert_secret,
+                    namespace=self.fleet_namespace,
+                    replica_id=self.pod_name,
+                    metrics=self.metrics,
+                    logger=self.log.with_values(process="fleet"),
+                )
+                rotator = FleetCertRotator(
+                    self.cert_dir
+                    or tempfile.mkdtemp(prefix="gk-certs-"),
+                    store,
+                    metrics=self.metrics,
+                    logger=self.log.with_values(process="fleet"),
+                )
+                rotator.ensure()  # load-or-create BEFORE serving
+                rotator.start()  # watch for peer rotations
 
             self.webhook = WebhookServer(
                 self.client,
@@ -523,6 +595,7 @@ class Runner:
                 tracer=self.tracer,
                 mutation_system=self.mutation_system,
                 cert_dir=self.cert_dir,
+                rotator=rotator,
                 bind_addr=self.bind_addr,
                 fail_policy=self.fail_policy,
                 max_queue=self.max_queue,
@@ -542,6 +615,28 @@ class Runner:
                 ),
             )
             self.webhook.start()
+            if (
+                self.fleet is not None
+                and self.webhook.partitioner is not None
+            ):
+                # per-device breaker state is a fleet property: each
+                # device breaker registers under its
+                # device:<plane>:<device_id> key as it is created, so a
+                # chip sick on one replica pre-opens the same device's
+                # breaker on peers (docs/fleet.md)
+                self.webhook.partitioner.set_fleet(self.fleet)
+            if self.fleet is not None:
+                # device-breaker trips gossip: an outage one replica
+                # discovered pre-opens peers' breakers to a half-open
+                # probe instead of N independent rediscoveries
+                for plane_name, batcher in (
+                    ("device:validation", self.webhook.batcher),
+                    ("device:mutation", self.webhook.mutate_batcher),
+                ):
+                    if batcher is not None and batcher.breaker is not None:
+                        self.fleet.register_breaker(
+                            plane_name, batcher.breaker
+                        )
             if self.vwh_name and self.webhook.rotator is not None:
                 from ..webhook.certs import CaBundleInjector
 
@@ -773,9 +868,14 @@ class Runner:
             self.integrity.close()  # stop the shadow-oracle worker
         if self.ca_injector is not None:
             self.ca_injector.stop()
+        if self.fleet is not None:
+            self.fleet.stop()
         if self.audit is not None:
             self.audit.stop()
         if self.webhook is not None:
+            rot_stop = getattr(self.webhook.rotator, "stop", None)
+            if rot_stop is not None:
+                rot_stop()  # fleet rotator: unsubscribe the Secret watch
             self.webhook.stop()
         if self._readyz_httpd is not None:
             self._readyz_httpd.shutdown()
@@ -914,6 +1014,19 @@ class Runner:
                         stats["externaldata"] = (
                             runner.external_data.snapshot()
                         )
+                    if runner.fleet is not None:
+                        # fleet health (docs/fleet.md): which peers are
+                        # alive, what state arrived from them, and the
+                        # cert generation this replica serves
+                        fl = runner.fleet.snapshot()
+                        rot = getattr(runner.webhook, "rotator", None)
+                        fl["cert_generation"] = getattr(
+                            rot, "cert_generation", None
+                        )
+                        fl["cert_rotations_adopted"] = getattr(
+                            rot, "rotations_adopted", None
+                        )
+                        stats["fleet"] = fl
                     drv = getattr(runner.client, "_driver", None)
                     if drv is not None and hasattr(drv, "stats"):
                         # engine routing health (docs/metrics.md): WHY
@@ -937,6 +1050,11 @@ class Runner:
                                 drv, "cold_batches", 0
                             ),
                         }
+                        warm = getattr(drv, "review_path_warm", None)
+                        if warm is not None:
+                            stats["driver"]["review_path_warm"] = warm(
+                                runner.target
+                            )
                     # cost-attribution and decision-log headlines (full
                     # payloads live at /debug/costs and /debug/decisions)
                     stats["obs"] = {

@@ -1,6 +1,4 @@
-# Copied from gatekeeper_tpu/externaldata/cache.py; only these edits differ.
-# Edit: the fleet plane's cache gossip is left out (ROADMAP A10):
-# `Entry.origin`, `ResponseCache.export_fresh` and `ResponseCache.merge`.
+# Copied from gatekeeper_tpu/externaldata/cache.py; unchanged.
 """TTL response cache with negative caching + stale-while-revalidate.
 
 The cache is what turns external data from a per-request RPC into a
@@ -43,6 +41,11 @@ class Entry:
     fetched_at: float = 0.0
     ttl: float = 0.0
     stale_ttl: float = 0.0
+    # "" = this process fetched it; a replica id = adopted from that
+    # peer via the fleet plane. Only local-origin entries are published
+    # (docs/fleet.md) — otherwise two replicas would echo each other's
+    # entries back and forth forever.
+    origin: str = ""
 
     def state(self, now: float) -> str:
         age = now - self.fetched_at
@@ -144,6 +147,74 @@ class ResponseCache:
                 self.metrics.record(
                     "externaldata_cache_evictions_total", n, provider=prov
                 )
+
+    # -- fleet sync (docs/fleet.md) ------------------------------------------
+
+    def export_fresh(self, max_entries: int = 512) -> List[Dict[str, Any]]:
+        """Local-origin, still-live entries as publishable records.
+        Ages are relative (`age_s`) because replicas do not share a
+        clock epoch — the merging side re-anchors against its own
+        clock, preserving the TTL / negative / stale-while-revalidate
+        windows exactly. Newest first, capped at `max_entries` (the
+        shared-state CR must stay bounded; the tail is the oldest and
+        closest to expiry anyway)."""
+        with self._lock:
+            now = self._clock()
+            out = []
+            for (p, k), e in self._entries.items():
+                if e.origin:
+                    continue
+                if e.state(now) == MISS:
+                    continue  # nothing live to share
+                out.append(
+                    {
+                        "provider": p,
+                        "key": k,
+                        "value": e.value,
+                        "error": e.error,
+                        "age_s": round(now - e.fetched_at, 3),
+                        "ttl": e.ttl,
+                        "stale_ttl": e.stale_ttl,
+                    }
+                )
+        out.sort(key=lambda r: r["age_s"])
+        return out[:max_entries]
+
+    def merge(self, record: Dict[str, Any], origin: str) -> bool:
+        """Adopt a peer-published record iff it is fresher than what we
+        hold (by effective fetch time under OUR clock). Expired records
+        and stale-er-than-ours records are dropped; adopted entries keep
+        the publisher's TTL windows and carry its replica id as origin
+        so they are never re-published from here. Returns True when the
+        entry was adopted."""
+        provider = str(record.get("provider") or "")
+        key = str(record.get("key") or "")
+        if not provider or not key:
+            return False
+        ttl = float(record.get("ttl") or 0.0)
+        stale_ttl = float(record.get("stale_ttl") or 0.0)
+        age_s = max(0.0, float(record.get("age_s") or 0.0))
+        if age_s >= ttl + stale_ttl:
+            return False  # dead on arrival
+        with self._lock:
+            now = self._clock()
+            fetched_at = now - age_s
+            cur = self._entries.get((provider, key))
+            if cur is not None and cur.fetched_at >= fetched_at:
+                return False  # ours is as fresh or fresher
+            self._entries[(provider, key)] = Entry(
+                value=record.get("value"),
+                error=record.get("error"),
+                fetched_at=fetched_at,
+                ttl=ttl,
+                stale_ttl=stale_ttl,
+                origin=origin,
+            )
+            self._entries.move_to_end((provider, key))
+            self.generation += 1
+            if len(self._entries) > self.max_entries:
+                self._evict_locked()
+        return True
 
     def drop_provider(self, provider: str) -> None:
         """Invalidate every entry of a provider (spec change/removal —

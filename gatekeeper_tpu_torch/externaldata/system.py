@@ -1,7 +1,4 @@
 # Copied from gatekeeper_tpu/externaldata/system.py; only these edits differ.
-# Edit: the fleet plane is left out (ROADMAP A10): no `set_fleet`, no
-# `fleet` attribute, so breakers are not gossiped and fresh cache entries
-# are not published to peers.
 # Edit: `_fetch` sends an epoch's keys in chunks of the provider's
 # `maxKeysPerRequest`, ceil(n / max_keys) requests, where the reference
 # sends the first max_keys and drops the rest, whose rows then fetch one
@@ -167,16 +164,32 @@ class ExternalDataSystem:
         self._refreshing: Set[str] = set()
         self.fetch_count = 0  # lifetime outbound fetches (tests/bench)
         self.stale_serves = 0
+        # fleet.FleetPlane when attached: fresh cache entries publish to
+        # peers and per-provider breakers gossip (docs/fleet.md)
+        self.fleet = None
+
+    # -- fleet plane (docs/fleet.md) ------------------------------------------
+
+    def set_fleet(self, plane) -> None:
+        """Attach the fleet state plane: cache fills wake its publisher
+        and every per-provider breaker (current and future) gossips
+        trips under `provider:<name>`."""
+        self.fleet = plane
+        with self._lock:
+            breakers = list(self._breakers.items())
+        for name, breaker in breakers:
+            plane.register_breaker(f"provider:{name}", breaker)
 
     # -- registry ------------------------------------------------------------
 
     def upsert(self, obj: Dict[str, Any]) -> Provider:
         p = provider_from_obj(obj)
+        new_breaker = None
         with self._lock:
             old = self._providers.get(p.name)
             self._providers[p.name] = p
             if p.name not in self._breakers:
-                self._breakers[p.name] = CircuitBreaker(
+                new_breaker = self._breakers[p.name] = CircuitBreaker(
                     failure_threshold=self.breaker_threshold,
                     recovery_seconds=self.breaker_recovery_s,
                     plane="externaldata",
@@ -189,6 +202,8 @@ class ExternalDataSystem:
                     tracer=self.tracer,
                     clock=self._clock,
                 )
+        if new_breaker is not None and self.fleet is not None:
+            self.fleet.register_breaker(f"provider:{p.name}", new_breaker)
         if old is not None and old.raw.get("spec") != p.raw.get("spec"):
             # a changed spec (new URL, new TTLs) must not keep serving
             # the old endpoint's cached answers
@@ -201,6 +216,8 @@ class ExternalDataSystem:
             self._providers.pop(name, None)
             self._breakers.pop(name, None)
             self._failed_epoch.pop(name, None)
+        if self.fleet is not None:
+            self.fleet.unregister_breaker(f"provider:{name}")
         self.cache.drop_provider(name)
         self.report_gauges()
 
@@ -208,9 +225,13 @@ class ExternalDataSystem:
         """Config wipe/replay partner (the control plane's replayData
         motion): drop every provider; the bounced watches re-upsert."""
         with self._lock:
+            names = list(self._breakers)
             self._providers.clear()
             self._breakers.clear()
             self._failed_epoch.clear()
+        if self.fleet is not None:
+            for name in names:
+                self.fleet.unregister_breaker(f"provider:{name}")
         self.cache.wipe()
         self.report_gauges()
 
@@ -395,6 +416,10 @@ class ExternalDataSystem:
             self.metrics.observe(
                 "externaldata_batch_keys", len(keys), provider=p.name
             )
+        if self.fleet is not None:
+            # freshly fetched entries are publishable: wake the fleet
+            # publisher so peers stop paying this cold fetch
+            self.fleet.notify_cache_update()
         return True
 
     def _note_failure(self, p: Provider, err: str) -> None:

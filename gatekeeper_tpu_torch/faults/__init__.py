@@ -1,6 +1,7 @@
 """Robustness toolkit of the admission plane (a subset of
 gatekeeper_tpu/faults): deterministic fault injection (`injection.py`, the
-named fault points the audit manager and the micro-batcher fire), the
+named fault points the driver, the audit manager and the micro-batcher
+fire, armed from GATEKEEPER_TPU_FAULTS at import), the
 device circuit breaker (`breaker.py`) and the overload/degradation error
 taxonomy (`errors.py`)."""
 
@@ -17,8 +18,10 @@ from .injection import (
     FaultError,
     FaultRegistry,
     FaultSpec,
+    configure_from_env,
     device_point,
     fire,
+    skew,
 )
 
 __all__ = [
@@ -35,6 +38,8 @@ __all__ = [
     "HALF_OPEN",
     "OPEN",
     "ShedError",
+    "configure_from_env",
     "device_point",
     "fire",
+    "skew",
 ]

@@ -1,17 +1,16 @@
-# Copied from gatekeeper_tpu/faults/injection.py; only these edits differ.
-# Edit: arming from GATEKEEPER_TPU_FAULTS (configure_from_env) and the
-# clock-jump skew() are left out; points are armed through FAULTS.arm. The docstring names the
-# port's ladder: a failed fused batch goes to the fail policy verdict.
+# Copied from gatekeeper_tpu/faults/injection.py; only the docstring
+# differs. Edit: it names the port's ladder: a failed fused batch gets
+# the fail policy verdict, never a host oracle.
 """Deterministic fault-injection registry.
 
 The admission plane concentrates all risk in one device dispatch: a
 failure envelope that is only ever exercised in production is not a
 failure envelope, it is a surprise. This registry gives every
 interesting failure surface a NAMED fault point threaded into the
-production code path itself (`fire("webhook.batch_dispatch")` sits
-inside `MicroBatcher._dispatch`, not in a test double), so tests drive
-the REAL degradation ladder — fused batch → fail-policy verdict — end to
-end.
+production code path itself (`fire("driver.device_dispatch")` sits
+inside `TorchDriver._need_pairs`, not in a test double), so tests and
+chaos runs drive the REAL degradation ladder — fused batch → fail-policy
+verdict — end to end.
 
 Semantics (arm / trigger / fire):
   * `arm(point, mode, ...)` registers a fault spec for a point;
@@ -20,24 +19,39 @@ Semantics (arm / trigger / fire):
     randomness — chaos runs must be replayable);
   * a triggered spec FIRES at most `count` times (-1 = forever):
     mode "error" raises `FaultError`, mode "hang" sleeps `delay_s`
-    then continues (a stall, not a crash); "clock_jump" is accepted
-    and never raises.
+    then continues (a stall, not a crash), mode "clock_jump" never
+    raises — callers that do deadline arithmetic consult `skew()` to
+    learn the injected clock offset.
 
-Activation: nothing is armed by default, and `fire()` is a single
-boolean check when the registry is empty. Tests and chaos drivers arm
-points with `FAULTS.arm(point, mode, ...)`.
+Activation: tier-1 stays clean because nothing is armed by default and
+`fire()` is a single boolean check when the registry is empty.
+Deployments opt in with
+`GATEKEEPER_TPU_FAULTS="point=mode[:key=value...],..."`, e.g.
+
+    GATEKEEPER_TPU_FAULTS="driver.device_dispatch=error:count=5,\
+bridge.process=hang:delay=0.25"
 
 The fault-point catalog lives in docs/robustness.md.
 """
 
 from __future__ import annotations
 
+import os
+import re
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 MODES = ("error", "hang", "clock_jump")
+
+# point=mode[:modifiers]; the point may itself contain '=' inside a
+# device label ("driver.device_dispatch[device=1]=error"), so the split
+# anchors on the first '=' that is followed by a KNOWN mode, not on the
+# first '=' in the entry
+_ENTRY_RE = re.compile(
+    r"^(?P<point>.+?)=(?P<mode>" + "|".join(MODES) + r")(?::(?P<rest>.*))?$"
+)
 
 
 def device_point(point: str, device) -> str:
@@ -138,8 +152,6 @@ class FaultRegistry:
     def active(self) -> bool:
         return self._active
 
-    # -- the fault point ----------------------------------------------------
-
     def snapshot(self) -> Dict[str, Dict]:
         """Armed-point inventory with hit/fire counts — the soak
         reporter logs this at each disarm so the evidence artifact
@@ -186,6 +198,27 @@ class FaultRegistry:
             raise FaultError(point, message)
         # clock_jump: consulted via skew(), never raises at the point
 
+    def skew(self, point: str) -> float:
+        """Injected clock offset (seconds) for an armed clock_jump at
+        `point`; 0.0 otherwise. Honors the same after/count trigger
+        semantics as fire(), so a chaos run can place the jump at a
+        deterministic consultation (e.g. AFTER a deadline was computed
+        but before it is checked — a real NTP step lands between two
+        reads of the clock, not at process start)."""
+        if not self._active:
+            return 0.0
+        with self._lock:
+            spec = self._specs.get(point)
+            if spec is None or spec.mode != "clock_jump":
+                return 0.0
+            spec.hits += 1
+            if spec.hits <= spec.after:
+                return 0.0
+            if spec.count >= 0 and spec.fired >= spec.count:
+                return 0.0
+            spec.fired += 1
+            return spec.delay_s
+
 
 # the registry every production fault point consults
 FAULTS = FaultRegistry()
@@ -193,3 +226,59 @@ FAULTS = FaultRegistry()
 
 def fire(point: str) -> None:
     FAULTS.fire(point)
+
+
+def skew(point: str) -> float:
+    return FAULTS.skew(point)
+
+
+def configure_from_env(registry: Optional[FaultRegistry] = None,
+                       env: Optional[str] = None) -> int:
+    """Parse GATEKEEPER_TPU_FAULTS into armed specs. Grammar (commas
+    separate entries, colons separate modifiers):
+
+        point=mode[:count=N][:after=N][:delay=S][:message=...]
+
+    Returns the number of points armed. Unparseable entries are
+    skipped — a typo in a chaos knob must not take the pod down."""
+    registry = registry if registry is not None else FAULTS
+    raw = env if env is not None else os.environ.get(
+        "GATEKEEPER_TPU_FAULTS", ""
+    )
+    armed = 0
+    for entry in raw.split(","):
+        entry = entry.strip()
+        if not entry or "=" not in entry:
+            continue
+        m = _ENTRY_RE.match(entry)
+        if m is None:
+            continue
+        point, mode = m.group("point"), m.group("mode")
+        rest = m.group("rest") or ""
+        kwargs = {}
+        ok = True
+        for part in rest.split(":") if rest else ():
+            key, _, val = part.partition("=")
+            try:
+                if key == "count":
+                    kwargs["count"] = int(val)
+                elif key == "after":
+                    kwargs["after"] = int(val)
+                elif key == "delay":
+                    kwargs["delay_s"] = float(val)
+                elif key == "message":
+                    kwargs["message"] = val
+                else:
+                    ok = False
+            except ValueError:
+                ok = False
+        if not ok:
+            continue
+        registry.arm(point.strip(), mode=mode, **kwargs)
+        armed += 1
+    return armed
+
+
+# env-armed faults activate at import so every plane (driver, webhook,
+# bridge, audit) sees the same registry without explicit wiring
+configure_from_env()

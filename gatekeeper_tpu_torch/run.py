@@ -2,11 +2,9 @@
 # Edit: the client's driver is TorchDriver; build_runner takes `device`
 # (None = "cuda", which raises without a card; tests pass "cpu"), and no
 # flag sets it. main's start-up log names the device.
-# Edit: flags of planes that are not ported are left out: --cert-secret
-# and --fleet-namespace (the fleet plane, ROADMAP A10; TLS uses the
-# pod-local CertRotator in --cert-dir) and --agent-review (A10); the
-# metrics server gets no flight recorder. A comment on arming faults from
-# the environment is dropped: the port's fault registry has no env arming.
+# Edit: the flag of a plane that is not ported is left out:
+# --agent-review (ROADMAP A10); the metrics server gets no flight
+# recorder (A10).
 """Process entry point: `python -m gatekeeper_tpu_torch.run` — the main.go
 analog (reference main.go:80-308).
 
@@ -26,8 +24,14 @@ with the selected operations; flags mirror the reference's surface:
   --log-denies           structured deny logs (policy.go:73)
   --emit-admission-events / --emit-audit-events
   --exempt-namespace     ns-label webhook exemption (repeatable)
-  --cert-dir             TLS artifact dir of the pod-local cert
-                         rotator ("" = private temp dir)
+  --cert-dir             local TLS artifact cache dir ("" = private
+                         temp dir; with --cert-secret this is ONLY a
+                         cache — the Secret is the store)
+  --cert-secret          name of the Secret backing the SHARED fleet
+                         cert store (docs/fleet.md; "" = pod-local
+                         certs, single-replica only)
+  --fleet-namespace      namespace holding the cert Secret + FleetState
+                         CRs (the gossip plane for cache/breaker state)
   --vwh-name             ValidatingWebhookConfiguration to keep
                          injected with the rotating CA bundle
   --enable-pprof         torch.profiler endpoint on the health server
@@ -81,11 +85,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--emit-audit-events", action="store_true")
     p.add_argument("--exempt-namespace", action="append", default=[])
     p.add_argument("--cert-dir", default="")
+    # the fleet plane (docs/fleet.md): Secret-backed shared certs ON by
+    # default — HA replicas must serve one CA; opt out with ""
+    p.add_argument(
+        "--cert-secret", default="gatekeeper-webhook-server-cert"
+    )
+    p.add_argument("--fleet-namespace", default="gatekeeper-system")
     p.add_argument("--vwh-name", default="")
     p.add_argument("--enable-pprof", action="store_true")
     # overload/degradation envelope (docs/robustness.md): the response
     # a shed/expired/unevaluable request gets, and the admission queue
-    # bound (0 = unbounded).
+    # bound (0 = unbounded). Chaos faults arm via GATEKEEPER_TPU_FAULTS.
     p.add_argument("--fail-policy", default="open",
                    choices=["open", "closed"])
     p.add_argument("--max-queue", type=int, default=2048)
@@ -175,6 +185,10 @@ def build_runner(args, log=None, webhook_tls: bool = True, device=None):
         logger=log,
         vwh_name=args.vwh_name or None,
         cert_dir=args.cert_dir or None,  # "" = process-private temp dir
+        cert_secret=getattr(args, "cert_secret", "") or None,
+        fleet_namespace=getattr(
+            args, "fleet_namespace", "gatekeeper-system"
+        ),
         fail_policy=getattr(args, "fail_policy", "open"),
         max_queue=(
             getattr(args, "max_queue", 2048) or None

@@ -1,5 +1,4 @@
 # Copied from gatekeeper_tpu/webhook/certs.py; only comments differ: the
-# fleet plane's shared cert store (ROADMAP A10) is not mentioned, and the
 # openssl fallback's note names no particular image. Both generators stay:
 # `cryptography` where it is installed, the `openssl` binary where not.
 """Webhook TLS: self-signed CA + server certificate with rotation.
@@ -126,7 +125,8 @@ class CertRotator:
     def generate_pair(self) -> dict:
         """Generate a fresh CA + server pair; returns the PEM artifacts
         as {"ca.crt": bytes, "tls.crt": bytes, "tls.key": bytes} WITHOUT
-        touching disk. Prefers the
+        touching disk — the fleet cert store offers this dict to the
+        shared Secret before any replica serves it. Prefers the
         `cryptography` package; falls back to the `openssl` binary so
         TLS serving works in containers without the wheel."""
         try:
@@ -367,9 +367,9 @@ class CaBundleInjector:
     def start(self) -> None:
         self.inject()
         self._unsubscribe = self.cluster.subscribe(self.gvk, self._on_event)
-        # a rotator that announces rotations (on_rotate) gets the
-        # bundle re-injected immediately instead of waiting for VWH drift
-        # to be noticed
+        # fleet rotators announce rotations (their own AND peers' picked
+        # up from the shared Secret): re-inject immediately instead of
+        # waiting for VWH drift to be noticed
         on_rotate = getattr(self.rotator, "on_rotate", None)
         if on_rotate is not None:
             on_rotate(lambda *_a, **_k: self.inject())

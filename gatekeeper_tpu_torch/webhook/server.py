@@ -26,14 +26,10 @@
 # driver (set_integrity, set_attributor), as the reference's Runner does,
 # so a server built without the Runner wires them too.
 # Edit: planes that are not ported are left out with their arguments:
-# the agent plane (ROADMAP A10), the flight recorder and the fleet's
-# shared cert store (A10; `rotator` takes the pod-local CertRotator or any
-# object with its interface). A path other than /v1/admit,
-# /v1/admitlabel and /v1/mutate is answered 404, so the /readyz and
-# /debug/partitions, /debug/programs documents are not served (the
-# dispatcher's plan_table and programs_table build them).
-# Edit: the deadline clock is time.monotonic(): the port's fault registry
-# has no clock-jump skew.
+# the agent plane (ROADMAP A10) and the flight recorder (A10). A path
+# other than /v1/admit, /v1/admitlabel and /v1/mutate is answered 404,
+# so the /readyz and /debug/partitions, /debug/programs documents are not
+# served (the dispatcher's plan_table and programs_table build them).
 # Edit: with TLS, each connection's handshake runs on that connection's
 # thread (`do_handshake_on_connect=False`, `_Server.finish_request`). The
 # reference wraps the listening socket with the default, so accept()
@@ -86,6 +82,7 @@ from ..faults import (
     EvaluationUnavailable,
     FaultError,
     fire,
+    skew,
 )
 from .namespacelabel import NamespaceLabelHandler
 from .policy import ValidationHandler
@@ -256,8 +253,10 @@ class MicroBatcher:
             self._dispatch(leftover)
 
     def _now(self) -> float:
-        """The batcher's deadline clock."""
-        return time.monotonic()
+        """The batcher's deadline clock: monotonic plus any injected
+        clock-jump skew (fault point `webhook.clock`) so chaos runs can
+        simulate NTP steps without touching the real clock."""
+        return time.monotonic() + skew("webhook.clock")
 
     def _driver_route(self) -> str:
         """What the driver does with a batch: `fused` (one device
@@ -967,8 +966,10 @@ class WebhookServer:
         metrics=None,
         tls: bool = False,
         cert_dir: Optional[str] = None,
-        # pre-built cert rotator; None builds a pod-local CertRotator in
-        # cert_dir. When the rotator exposes on_rotate, a rotation
+        # pre-built cert rotator (fleet.FleetCertRotator for the
+        # Secret-backed shared store); None builds a pod-local
+        # CertRotator in cert_dir. When the rotator exposes on_rotate
+        # (the fleet one does), a rotation — our own OR a peer's —
         # re-loads the live SSL context so new handshakes serve the new
         # pair WITHOUT a restart.
         rotator=None,

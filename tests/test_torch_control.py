@@ -349,14 +349,31 @@ def test_ready_on_ingest_warm_swaps_in(booted):
 
 
 def test_warm_thread_ends_without_a_compile_step(booted):
-    """TorchDriver has no review_path_warm: the Runner's warm thread runs
-    the webhook's warmup once and ends instead of polling."""
+    """The Runner's warm thread compiles and stages the policy once the
+    state is ingested (TorchDriver.warm_review_path), before any batch
+    asks for it, and polls review_path_warm as the reference's does: a
+    constraint change is compiled again without a batch. /readyz
+    stats.driver carries review_path_warm. The thread keeps polling until
+    the Runner stops."""
     cluster, runner = booted
+    drv = runner.client._driver
     t = runner._warm_thread
     assert t is not None
-    t.join(timeout=30)
-    assert not t.is_alive()
-    assert runner.webhook.warm
+    assert _wait(lambda: runner.webhook.warm
+                 and drv.review_path_warm(TARGET), 30)
+    assert t.is_alive()
+    assert drv._cset[TARGET].policy is not None
+    gen0 = drv.constraint_generation()
+    cluster.apply(constraint("K8sRequiredLabels", "need-team",
+                             params={"labels": ["team"]}))
+    assert _wait(lambda: drv.constraint_generation() > gen0
+                 and drv.review_path_warm(TARGET), 30)
+    assert len(drv._cset[TARGET].constraints) == 2
+    with urllib.request.urlopen(
+        f"http://127.0.0.1:{runner.readyz_port}/readyz", timeout=30
+    ) as resp:
+        body = json.loads(resp.read())
+    assert body["stats"]["driver"]["review_path_warm"] is True
 
 
 def test_template_update_churn(booted):

@@ -434,6 +434,82 @@ def test_mutation_plane_runs_with_jax_blocked():
     assert out.stdout.split() == ["True", "1", "True", "17"]
 
 
+FLEET_PLANE = (
+    "gatekeeper_tpu_torch.fleet",
+    "gatekeeper_tpu_torch.fleet.certs",
+    "gatekeeper_tpu_torch.fleet.plane",
+    "gatekeeper_tpu_torch.fleet.store",
+    "gatekeeper_tpu_torch.control.events",
+    "gatekeeper_tpu_torch.externaldata.cache",
+    "gatekeeper_tpu_torch.faults.injection",
+)
+
+
+def test_fleet_plane_runs_with_jax_blocked(tmp_path):
+    """Importing gatekeeper_tpu_torch.fleet in a fresh interpreter loads
+    no jax* and no gatekeeper_tpu.* module; with both blocked, two
+    rotators over one FakeCluster serve one CA and two FleetPlanes gossip
+    a cache entry and a breaker trip."""
+    assert set(FLEET_PLANE) <= set(_modules())
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    code = (
+        "import sys\n"
+        "import gatekeeper_tpu_torch.fleet\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'gatekeeper_tpu')))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    code = (
+        "import importlib, sys, time\n"
+        "for m in ('jax', 'jaxlib', 'gatekeeper_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {FLEET_PLANE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from gatekeeper_tpu_torch.control import FakeCluster\n"
+        "from gatekeeper_tpu_torch.externaldata import ExternalDataSystem\n"
+        "from gatekeeper_tpu_torch.faults import CircuitBreaker\n"
+        "from gatekeeper_tpu_torch.fleet import (\n"
+        "    FleetCertRotator, FleetPlane, SecretCertStore)\n"
+        "c = FakeCluster()\n"
+        "rots = [FleetCertRotator(\n"
+        f"    {str(tmp_path)!r} + '/' + r, SecretCertStore(c, replica_id=r))\n"
+        "    for r in 'ab']\n"
+        "for r in rots:\n"
+        "    r.start(); r.ensure()\n"
+        "planes, breakers = [], []\n"
+        "for r in 'ab':\n"
+        "    p = FleetPlane(c, r, publish_interval_s=0.01)\n"
+        "    s = ExternalDataSystem()\n"
+        "    p.attach_cache(s)\n"
+        "    b = CircuitBreaker(failure_threshold=1)\n"
+        "    p.register_breaker('device:validation', b)\n"
+        "    p.start()\n"
+        "    planes.append((p, s)); breakers.append(b)\n"
+        "planes[0][1].cache.put('prov', 'k', value='v', ttl=60.0)\n"
+        "planes[0][0].notify_cache_update()\n"
+        "breakers[0].record_failure()\n"
+        "deadline = time.monotonic() + 30\n"
+        "while time.monotonic() < deadline and not (\n"
+        "        planes[1][0].cache_merged and breakers[1].state != 'closed'):\n"
+        "    time.sleep(0.01)\n"
+        "for p, _ in planes:\n"
+        "    p.stop()\n"
+        "print(rots[0].ca_bundle() == rots[1].ca_bundle(),\n"
+        "      planes[1][0].cache_merged, breakers[1].state)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True", "1", "half_open"]
+
+
 def test_entry_and_inventory_joins_run_with_jax_blocked():
     """The harness step (gatekeeper_tpu_torch.entry) and an audit over the
     uniqueness joins run on the CPU in an interpreter where importing jax

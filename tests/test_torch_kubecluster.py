@@ -435,8 +435,13 @@ def test_build_runner_device_none_needs_a_card(mock):
     args = trun.build_parser().parse_args(["--kube-url", mock.url])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trun.build_runner(args, webhook_tls=False)
-    assert not any(a.startswith("--device") or a == "--cert-secret"
-                   for a in trun.build_parser()._option_string_actions)
+    parser = trun.build_parser()
+    assert not any(a.startswith("--device")
+                   for a in parser._option_string_actions)
+    # the fleet plane's shared cert store is the process default, as in
+    # the reference
+    assert parser.parse_args([]).cert_secret == (
+        "gatekeeper-webhook-server-cert")
 
 
 # -- certificates ------------------------------------------------------------
