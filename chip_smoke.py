@@ -139,7 +139,9 @@ Phases, one line each on stdout, in this order:
            streams, status writes) holding the 500 constraints, a Config
            syncing Pods and the 100,000 pods of make_pod with images drawn
            from a 5,000-image catalogue; --audit-from-cache, TLS,
-           webhook, audit, status, and the process defaults otherwise
+           webhook, audit, status, --agent-review (the agent target
+           registered, /v1/agent/review mounted) and --ingest on (the
+           framed listener), and the process defaults otherwise
            (the integrity plane on, its shadow oracle in a process of its
            own sampling 1 in 8 admissions; the Secret-backed cert store,
            whose CA every HTTPS client here trusts, and the fleet plane
@@ -179,11 +181,32 @@ Phases, one line each on stdout, in this order:
            none; a cache-hit batch of 256 renders no pair of that kind on
            the interpreter; past the TTL that batch refetches (ceil(keys /
            512) requests) and the rows of images flagged meanwhile route back and violate;
+  agent    the same Runner's agent-action plane: a skill-registry
+           Provider on a localhost provider knowing 512 digests (1 in 16
+           flagged), the three agent templates of tests/test_agentaction.py
+           (shell allowlist, signed skills, verified skills through
+           external data) and 30 constraints over tool globs *, ns.* and
+           exact names, agents, excludedAgents, capability and skill
+           selectors, created through the stand-in after Ready while 256
+           AdmissionReviews over HTTPS from 64 callers run: the K8s set is
+           neither rebuilt nor cooled and no admission fails or times out;
+           then 2,048 HTTPS /v1/agent/review requests (the soak harness's
+           record shape over 64 agents, 8 tool namespaces, 1 in 4 skills
+           unsigned) and 512 framed 'A' frames over 16 connections, from
+           256 callers each, one fused dispatch per agent batch; and 512
+           requests from 256 callers through a WebhookServer over the same
+           client with an agent MutationSystem holding the default-timeout
+           Assign: every patch equal to the host path's, one K1 screen
+           per mutation batch. 64 answers against the interpreter, no
+           fail-open answer, none past the 10 s timeout, /readyz 200 at
+           every poll of the phase (C6), K1-K4 launch, K1 bit for bit
+           against its plain version on the agent batches' inputs with
+           its device time and bound on that shape;
   fleet    two replicas on the card over one stand-in: A, the Runner of
            the three phases above, and B, python -m
            gatekeeper_tpu_torch.run as a child (its own CUDA context) at
-           the same config, --operation webhook, the process defaults
-           otherwise and GATEKEEPER_TPU_FAULTS arming
+           the same config, --operation webhook, --agent-review, the
+           process defaults otherwise and GATEKEEPER_TPU_FAULTS arming
            driver.device_dispatch=error past 120 dispatches for the
            breaker's threshold. B boots while A idles; one Secret and one
            CA verified on both, cert_generation equal; A rotates and B,
@@ -194,8 +217,10 @@ Phases, one line each on stdout, in this order:
            fleet-wide over the distinct keys printed; 64 answers against
            the interpreter); B's armed fault trips its breaker, A's adopts
            it (HALF_OPEN), A's next batch is one probe that closes it, no
-           answer from A fails or fails open; each /readyz lists the
-           other as its peer with no publish failure; K1-K4 launch for A,
+           answer from A fails or fails open; each /readyz answers 200
+           (A's after the extdata and agent kinds came after its Ready,
+           C6) and lists the other as its peer with no publish failure;
+           K1-K4 launch for A,
            B's log names the device, B exits 0 on SIGTERM. It prints the
            byte size of a FleetState publish at its 512-entry cap;
   process  python -m gatekeeper_tpu_torch.run as a child against a
@@ -254,7 +279,7 @@ runs card, build and the runner phase alone on the process defaults
 
     python3 chip_smoke.py --fleet
 
-runs them, then the extdata, fleet and process phases.
+runs them, then the extdata, agent, fleet and process phases.
 
     python3 chip_smoke.py --probe [--tree DIR]
 
@@ -362,6 +387,7 @@ PATH_KERNELS = {
     "extdata": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "mutation": ("match_matrix",),
     "fleet": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "agent": ("match_matrix", "slab_gather", "need_tail", "flush_deltas"),
 }
 
 # A two-array join in the shape of gatekeeper-library's
@@ -1336,6 +1362,24 @@ def phase_audit_parity(port, ref, drv, n_pods: int = 1000, n_join: int = 4,
                direct={"total": got["total"], "by_action": got["by_action"]},
                seconds=time.perf_counter() - t0)
     print(json.dumps(out), flush=True)
+
+
+def _keep_k8s_stats(drv):
+    """-> a dict that holds `drv.stats` as each K8s audit query left it:
+    a Runner with the agent target audits both targets in turn, so
+    `drv.stats` ends on the agent target's."""
+    kept = {}
+    audit = drv._audit
+
+    def kept_audit(target, trace):
+        out = audit(target, trace)
+        if target == TARGET:
+            kept.clear()
+            kept.update(drv.stats)
+        return out
+
+    drv._audit = kept_audit
+    return kept
 
 
 def _upload(stats):
@@ -2430,13 +2474,15 @@ def _oracle(client):
     dynamic one, GK-V004), and keeps client.review_host from freezing the
     serving driver's whole inventory (100,000 pods) in the serving
     process."""
+    from gatekeeper_tpu_torch.agentaction import AgentActionTarget
     from gatekeeper_tpu_torch.constraint import (
         Backend,
         K8sValidationTarget,
         RegoDriver,
     )
 
-    oracle = Backend(RegoDriver()).new_client(K8sValidationTarget())
+    oracle = Backend(RegoDriver()).new_client(K8sValidationTarget(),
+                                              AgentActionTarget())
     with client._lock:
         templates = [e.template for e in client._templates.values()]
         constraints = [c for by_name in client._constraints.values()
@@ -4518,6 +4564,7 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
         "--kube-url", api.url, "--port", "0", "--health-addr-port", "0",
         "--audit-from-cache", "--audit-interval", "3600",
         "--cert-dir", os.path.join(work, "certs"), "--log-level", "error",
+        "--agent-review", "--ingest", "on",
     ])
     rec.install()
     ops.reset_launches()
@@ -4531,6 +4578,7 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
              "log": log_file}
     try:
         client, drv = runner.client, runner.client._driver
+        k8s_stats = state["k8s_stats"] = _keep_k8s_stats(drv)
         runner.start()
         if not runner.wait_ready(900):
             raise AssertionError(
@@ -4542,8 +4590,8 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
         warm_s = time.perf_counter() - t_boot
         _step("runner", "first sweep", t_boot)
         sweep = {"seconds": runner.audit.audit_duration_seconds,
-                 "phase_seconds": dict(drv.stats.get("phase_seconds", {})),
-                 "upload": _upload(drv.stats)}
+                 "phase_seconds": dict(k8s_stats.get("phase_seconds", {})),
+                 "upload": _upload(k8s_stats)}
         report = runner.audit.sink.latest
         if full_counts is None:  # a probe: no full phase ran before
             full_counts = {k: st.total_violations
@@ -4587,8 +4635,8 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
             churn_profile = sampler.close()
         churn = {"seconds": time.perf_counter() - t_c,
                  "host_profile": churn_profile,
-                 "phase_seconds": dict(drv.stats.get("phase_seconds", {})),
-                 "upload": _upload(drv.stats),
+                 "phase_seconds": dict(k8s_stats.get("phase_seconds", {})),
+                 "upload": _upload(k8s_stats),
                  "violations": churn_report.total_violations}
         print(json.dumps({"phase": "runner", "step": "churn swept",
                           "churn": churn}, default=float), flush=True)
@@ -5119,8 +5167,9 @@ def _stop_runner(state):
     runner = state.get("runner")
     if runner is not None:
         runner.stop()
-    if state.get("stub") is not None:
-        state["stub"].close()
+    for stub in ("stub", "agent_stub"):
+        if state.get(stub) is not None:
+            state[stub].close()
     if state.get("cluster") is not None:
         state["cluster"].stop()
     if state.get("api") is not None:
@@ -5223,6 +5272,7 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
     t0 = time.perf_counter()
     api, runner = state["api"], state["runner"]
     client, drv = runner.client, runner.client._driver
+    k8s_stats = state["k8s_stats"]
     rng = np.random.default_rng(RUNNER_SEED + 1)
     flagged = {catalogue_image(int(k)) for k in rng.choice(
         IMAGE_CATALOGUE, int(IMAGE_CATALOGUE * flag_share), replace=False)}
@@ -5260,11 +5310,11 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
             rep = runner.audit.audit()
             made = fetches.since(f0)
             return {"seconds": time.perf_counter() - t,
-                    "phase_seconds": dict(drv.stats.get("phase_seconds", {})),
+                    "phase_seconds": dict(k8s_stats.get("phase_seconds", {})),
                     "fetches": len(made), "keys": sum(made),
                     "violations": rep.statuses[key].total_violations
                     if key in rep.statuses else 0,
-                    "interp_rendered_pairs": drv.stats["interp_rendered_pairs"]}
+                    "interp_rendered_pairs": k8s_stats["interp_rendered_pairs"]}
 
         first = sweep()
         # the screen's bits from the live cache (no fetch: keys cached)
@@ -5422,9 +5472,542 @@ def phase_extdata(rec, state, n_requests: int = 1024, callers: int = 256,
     return launches
 
 
+# -- agent: /v1/agent/review on the Runner (config #5 beside it) -------------
+
+AGENT_TARGET = "agent.action.gatekeeper.sh"
+AGENT_PROVIDER = "skill-registry"
+AGENT_SEED = 20261018
+AGENT_SHELL_REGO = """package agentshellallowlist
+allowed_cmd(c) { c == input.parameters.allowed[_] }
+violation[{"msg": msg}] {
+  cmd := input.review.object.spec.arguments.command
+  not allowed_cmd(cmd)
+  msg := sprintf("shell command <%v> is outside the allowlist", [cmd])
+}
+"""
+AGENT_SIGNED_REGO = """package agentrequiresignedskills
+violation[{"msg": msg}] {
+  not input.review.object.spec.skill.signed
+  msg := sprintf("tool <%v> was invoked from an unsigned skill", [input.review.object.spec.tool])
+}
+"""
+AGENT_VERIFIED_REGO = """package agentverifiedskills
+violation[{"msg": msg}] {
+  response := external_data({"provider": "skill-registry", "keys": [input.review.object.spec.skill.digest]})
+  count(response.errors) > 0
+  msg := sprintf("skill signature verification failed: %v", [response.errors])
+}
+"""
+# the three agent templates of tests/test_agentaction.py, by kind
+AGENT_TEMPLATES = (("AgentShellAllowlist", AGENT_SHELL_REGO),
+                   ("AgentRequireSignedSkills", AGENT_SIGNED_REGO),
+                   ("AgentVerifiedSkills", AGENT_VERIFIED_REGO))
+AGENT_NAMESPACES = ("shell", "net", "fs", "git", "db", "browser", "mail",
+                    "cloud")
+AGENT_LEAVES = ("exec", "run", "fetch", "read", "write")
+AGENT_CAPS = ("exec", "net", "fs", "read", "write")
+AGENT_ALLOWED = ("ls", "cat", "git", "echo")
+AGENT_COMMANDS = AGENT_ALLOWED + ("rm", "curl")
+N_AGENTS = 64
+N_DIGESTS = 512
+
+
+def skill_digest(k: int) -> str:
+    return f"sha256:{k:064x}"
+
+
+def agent_template_docs():
+    return [{"apiVersion": "templates.gatekeeper.sh/v1beta1",
+             "kind": "ConstraintTemplate", "metadata": {"name": kind.lower()},
+             "spec": {"crd": {"spec": {"names": {"kind": kind}}},
+                      "targets": [{"target": AGENT_TARGET, "rego": rego}]}}
+            for kind, rego in AGENT_TEMPLATES]
+
+
+def _agent_match(i: int):
+    """Constraint i's match block: tool globs `*`, `ns.*` and exact
+    names, agents and excludedAgents, capability and skill selectors."""
+    ns = AGENT_NAMESPACES[i % len(AGENT_NAMESPACES)]
+    nxt = AGENT_NAMESPACES[(i + 1) % len(AGENT_NAMESPACES)]
+    m = {"tools": (["*"], [f"{ns}.*"],
+                   [f"{ns}.{AGENT_LEAVES[i % len(AGENT_LEAVES)]}",
+                    f"{nxt}.*"])[i % 3]}
+    if i % 4 == 1:
+        m["agents"] = [f"agent-{j}" for j in range(i % 4, N_AGENTS, 4)]
+    if i % 4 == 2:
+        m["excludedAgents"] = [f"agent-{j}" for j in range(0, N_AGENTS, 8)]
+    if i % 5 == 3:
+        m["capabilities"] = {"matchExpressions": [
+            {"key": "exec", "operator": "Exists"}]}
+    if i % 5 == 4:
+        m["skills"] = {"matchLabels": {"publisher": "acme"}}
+    if i % 5 == 0 and i:
+        m["skills"] = {"matchExpressions": [
+            {"key": "publisher", "operator": "NotIn",
+             "values": ["first-party"]}]}
+    return m
+
+
+def agent_constraint_docs(per_template: int = 10):
+    out = []
+    for t, (kind, _) in enumerate(AGENT_TEMPLATES):
+        for i in range(per_template):
+            spec = {"match": _agent_match(t * per_template + i)}
+            if kind == "AgentShellAllowlist":
+                spec["parameters"] = {"allowed": list(
+                    AGENT_ALLOWED[: 2 + i % 3])}
+            out.append({"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+                        "kind": kind,
+                        "metadata": {"name": f"{kind.lower()}-{i}"},
+                        "spec": spec})
+    return out
+
+
+def agent_records(seed: int, n: int, tag: str):
+    """n tool-call records in the soak harness's shape
+    (gatekeeper_tpu/soak/harness.py `_body`, plane "agent") over 64
+    agents, 8 tool namespaces and 512 registry digests, 1 in 4 skills
+    unsigned."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        caps = [c for c in AGENT_CAPS if r.random() < 0.4] or ["exec"]
+        out.append({
+            "uid": f"{tag}-{i}", "id": f"{tag}-{i}",
+            "agent": f"agent-{int(r.integers(N_AGENTS))}",
+            "session": f"s-{int(r.integers(11))}",
+            "tool": f"{AGENT_NAMESPACES[int(r.integers(8))]}."
+                    f"{AGENT_LEAVES[int(r.integers(5))]}",
+            "arguments": {"command": AGENT_COMMANDS[
+                int(r.integers(len(AGENT_COMMANDS)))]},
+            "capabilities": caps,
+            "skill": {"name": f"skill-{int(r.integers(32))}",
+                      "publisher": ("acme", "first-party", "community")[
+                          int(r.integers(3))],
+                      "signed": bool(i % 4),
+                      "digest": skill_digest(int(r.integers(N_DIGESTS)))},
+        })
+    return out
+
+
+def _agent_envelope(record) -> bytes:
+    return json.dumps({"apiVersion": "agentaction.gatekeeper.sh/v1",
+                       "kind": "AgentActionReview",
+                       "request": record}).encode()
+
+
+def default_timeout_assign():
+    """The Assign of tests/test_agentaction.py: a 30 s timeout on every
+    shell.exec call that sets none."""
+    return {
+        "apiVersion": "mutations.gatekeeper.sh/v1alpha1",
+        "kind": "Assign", "metadata": {"name": "default-timeout"},
+        "spec": {
+            "applyTo": [{"groups": ["shell"], "versions": ["v1"],
+                         "kinds": ["exec"]}],
+            "match": {"tools": ["shell.*"]},
+            "location": "spec.arguments.timeoutSeconds",
+            "parameters": {
+                "pathTests": [{"subPath": "spec.arguments.timeoutSeconds",
+                               "condition": "MustNotExist"}],
+                "assign": {"value": 30},
+            },
+        },
+    }
+
+
+class ReadyzWatch:
+    """Polls a replica's /readyz every `step` seconds until closed: keeps
+    each HTTP status other than 200, and counts polls that got no answer
+    within 10 s."""
+
+    def __init__(self, port: int, step: float = 0.5):
+        import threading
+
+        self.port, self.step = port, step
+        self.polls, self.bad, self.unanswered = 0, [], 0
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        while not self._stop.wait(self.step):
+            status, _ = _http_get(f"http://127.0.0.1:{self.port}/readyz")
+            self.polls += 1
+            if status is None:
+                self.unanswered += 1
+            elif status != 200:
+                self.bad.append(status)
+
+    def close(self):
+        self._stop.set()
+        self._t.join(timeout=30)
+        return {"polls": self.polls, "not_200": self.bad,
+                "unanswered": self.unanswered}
+
+
+def _expected_agent_response(oracle, record):
+    """The interpreter's answer for a tool-call record, as
+    AgentReviewHandler renders it."""
+    from gatekeeper_tpu_torch.agentaction import AgentAction
+
+    res = oracle.review_host(AgentAction.from_record(record))
+    return _response_of(res.by_target[AGENT_TARGET].results)
+
+
+def _load_stats(lat, wall, n, batches, bodies):
+    return {"requests": n, "wall_s": wall, "rps": n / wall,
+            "p50_s": _quantile(lat, 0.5), "p99_s": _quantile(lat, 0.99),
+            "max_s": max(lat), "batches": batches,
+            "occupancy": n / max(1, batches),
+            "fail_open": sum(_unavailable(b) for b in bodies),
+            "denied": sum(not b["response"]["allowed"] for b in bodies)}
+
+
+def phase_agent(rec, state, n_http: int = 2048, n_framed: int = 512,
+                n_mutate: int = 512, callers: int = 256, conns: int = 16,
+                n_sample: int = 64, n_admit: int = 256):
+    """The agent-action plane on the runner phase's Runner (built with
+    --agent-review and --ingest on, config #5 beside it). Through the
+    ApiServer after Ready: a `skill-registry` Provider on a localhost
+    StubProvider that knows 512 digests (1 in 16 flagged), the three agent
+    templates and 30 constraints over the whole match schema, while
+    n_admit /v1/admit requests from 64 callers run: the new kind must
+    neither rebuild nor cool the K8s set, nor fail an admission; /readyz
+    answers 200 throughout the phase (C6). Then n_http HTTPS
+    /v1/agent/review requests and n_framed framed 'A' frames (ingest
+    port, `conns` connections) from `callers` callers, one fused dispatch
+    per agent batch; and n_mutate requests from `callers` through a
+    WebhookServer over the same client with an agent MutationSystem
+    holding the default-timeout Assign: one K1 screen per mutation batch,
+    every patch equal to the host path's. n_sample answers against the
+    interpreter, no fail-open answer, none past the request timeout; K1
+    held bit for bit against its plain version on the agent batches'
+    inputs. Each load's own launches: K1 and K4 once per fused dispatch
+    (and K1 once per mutation screen), K2 the same number of times in
+    every dispatch, K5 once per vocabulary delta flush.
+    -> ({"agent": the three agent loads' launches, "agent_admit": the
+    policy step's, /v1/admit beside the new policy}, the K1 figures of
+    the agent review's shape)."""
+    import base64
+    import threading
+
+    import torch
+    from gatekeeper_tpu_torch.agentaction import AgentActionTarget
+    from gatekeeper_tpu_torch.ingest import PLANE_AGENT
+    from gatekeeper_tpu_torch.kernels import ops
+    from gatekeeper_tpu_torch.mutation import MutationSystem, json_patch
+    from gatekeeper_tpu_torch.mutation.patch import apply_patch
+    from gatekeeper_tpu_torch.webhook import WebhookServer
+
+    t0 = time.perf_counter()
+    api, runner = state["api"], state["runner"]
+    client, drv = runner.client, runner.client._driver
+    if AGENT_TARGET not in client.targets or runner.webhook.agent_handler \
+            is None or runner.webhook.ingest is None:
+        raise AssertionError("agent: the Runner has no agent plane or "
+                             "ingest listener")
+    import numpy as np
+
+    rng = np.random.default_rng(AGENT_SEED)
+    flagged = {skill_digest(int(k)) for k in rng.choice(
+        N_DIGESTS, N_DIGESTS // 16, replace=False)}
+    stub = state["agent_stub"] = StubProvider(flagged)
+    watch = ReadyzWatch(runner.readyz_port)
+    out = {"phase": "agent", "templates": len(AGENT_TEMPLATES)}
+    # fused need dispatches per target
+    dispatches = {}
+    need_pairs = drv._need_pairs
+
+    def counted(target, *a, **kw):
+        dispatches[target] = dispatches.get(target, 0) + 1
+        return need_pairs(target, *a, **kw)
+
+    drv._need_pairs = counted
+    rec.install()
+    try:
+        ops.reset_launches()
+        # (1) the agent policy on a Ready, serving Runner
+        k8s_set = drv._cset.get(TARGET)
+        programs0 = set(drv._programs)
+        compiles0 = drv.program_compiles
+        admit_posts, _ = webhook_posts(13, n_admit)
+        admit = {}
+        # the stand-in's pipe serves one thread: this one
+        ctx = _https_context(api)
+
+        def admit_load():
+            try:
+                admit["out"] = _drive_http(runner.webhook.port, admit_posts,
+                                           64, ssl_ctx=ctx)
+            except BaseException as e:  # raised below
+                admit["error"] = e
+
+        ab0 = runner.webhook.batcher.batches_dispatched
+        loader = threading.Thread(target=admit_load, daemon=True)
+        loader.start()
+        t_c = time.perf_counter()
+        _register_constraint_kinds(api, [k for k, _ in AGENT_TEMPLATES])
+        api.put({"apiVersion": "externaldata.gatekeeper.sh/v1alpha1",
+                 "kind": "Provider", "metadata": {"name": AGENT_PROVIDER},
+                 "spec": {"url": stub.url, "timeout": 30,
+                          "failurePolicy": "Fail", "cacheTTLSeconds": 600,
+                          "negativeCacheTTLSeconds": 600}})
+        for d in agent_template_docs():
+            api.put(d)
+        docs = agent_constraint_docs()
+        for d in docs:
+            api.put(d)
+        _wait_for(lambda: len(drv._constraints(AGENT_TARGET)) == len(docs)
+                  and runner.external_data.get(AGENT_PROVIDER) is not None,
+                  120, "the agent policy to ingest")
+        ingest_s = time.perf_counter() - t_c
+        _wait_for(lambda: drv.review_path_warm(AGENT_TARGET), 120,
+                  "the agent review path to warm")
+        warm_s = time.perf_counter() - t_c
+        loader.join(timeout=300)
+        if "error" in admit or "out" not in admit:
+            raise AssertionError(f"agent: the admit load: {admit}")
+        a_bodies, a_lat, a_wall = admit["out"]
+        new_keys = set(drv._programs) - programs0
+        policy = {
+            "launches": dict(ops.LAUNCHES),
+            "constraints": len(docs), "ingest_s": ingest_s,
+            "agent_warm_s": warm_s,
+            "program_compiles": drv.program_compiles - compiles0,
+            "programs_added_by_target": {
+                t: sum(k[0] == t for k in new_keys)
+                for t in (TARGET, AGENT_TARGET)},
+            "k8s_set_kept": drv._cset.get(TARGET) is k8s_set,
+            "k8s_warm": drv.review_path_warm(TARGET),
+            "admit": {**_load_stats(
+                a_lat, a_wall, n_admit,
+                runner.webhook.batcher.batches_dispatched - ab0, a_bodies),
+                      "late": sum(t > runner.webhook.request_timeout
+                                  for t in a_lat)},
+        }
+        out["policy"] = policy
+        print(json.dumps(dict(out, step="policy"), default=float),
+              flush=True)
+        if not policy["k8s_set_kept"] or not policy["k8s_warm"] or \
+                policy["programs_added_by_target"][TARGET] or \
+                policy["admit"]["fail_open"] or policy["admit"]["late"]:
+            raise AssertionError(f"agent: the new policy: {policy}")
+        _step("agent", "policy", t0)
+
+        oracle = _oracle(client)
+        sampled = []  # (record, answer)
+        k1 = ops.match_matrix
+        k1_inputs = []
+
+        def k1_kept(ms, fb):
+            n = fb["group_id"].shape[0]
+            if not k1_inputs or n > k1_inputs[-1][1]["group_id"].shape[0]:
+                kept = (ms, {k: v.clone() for k, v in fb.items()})
+                k1_inputs[:] = [kept]
+            return k1(ms, fb)
+
+        # (2) HTTPS /v1/agent/review on the Runner
+        ab = runner.webhook.agent_batcher
+        recs = agent_records(AGENT_SEED + 1, n_http, "https")
+        posts = [("/v1/agent/review", _agent_envelope(r)) for r in recs]
+        b0, f0 = ab.batches_dispatched, ab.batch_failures
+        d0 = dispatches.get(AGENT_TARGET, 0)
+        l0 = dict(ops.LAUNCHES)
+        u0 = drv.kernel.uploads["delta_flushes"]
+        ops.match_matrix = k1_kept
+        try:
+            bodies, lat, wall = _drive_http(runner.webhook.port, posts,
+                                            callers, ssl_ctx=ctx)
+        finally:
+            ops.match_matrix = k1
+        https = _load_stats(lat, wall, n_http, ab.batches_dispatched - b0,
+                            bodies)
+        https.update(**_first_request_split(lat, callers),
+                     dispatches=dispatches.get(AGENT_TARGET, 0) - d0,
+                     launches={k: v - l0[k] for k, v in ops.LAUNCHES.items()},
+                     delta_flushes=drv.kernel.uploads["delta_flushes"] - u0,
+                     late=sum(t > runner.webhook.request_timeout
+                              for t in lat))
+        step = max(1, n_http // (n_sample // 2))
+        sampled += [(recs[i], bodies[i]) for i in range(0, n_http, step)]
+        out["https"] = https
+        _step("agent", "https load", t0)
+
+        # (3) framed 'A' frames through the ingest port
+        recs_f = agent_records(AGENT_SEED + 2, n_framed, "framed")
+        frames = [(PLANE_AGENT, _agent_envelope(r), 10_000) for r in recs_f]
+        b0 = ab.batches_dispatched
+        d0 = dispatches.get(AGENT_TARGET, 0)
+        l0 = dict(ops.LAUNCHES)
+        u0 = drv.kernel.uploads["delta_flushes"]
+        bodies_f, lat, wall = _drive_framed(runner.webhook.ingest.port,
+                                            frames, callers, conns)
+        framed = _load_stats(lat, wall, n_framed,
+                             ab.batches_dispatched - b0, bodies_f)
+        framed.update(dispatches=dispatches.get(AGENT_TARGET, 0) - d0,
+                      launches={k: v - l0[k]
+                                for k, v in ops.LAUNCHES.items()},
+                      delta_flushes=drv.kernel.uploads["delta_flushes"] - u0,
+                      late=sum(t > runner.webhook.request_timeout
+                               for t in lat), conns=conns)
+        step = max(1, n_framed // (n_sample // 4))
+        sampled += [(recs_f[i], bodies_f[i])
+                    for i in range(0, n_framed, step)]
+        out["framed"] = framed
+        _step("agent", "framed load", t0)
+
+        # (4) the agent mutation plane over the same client
+        msys = MutationSystem(target_handler=AgentActionTarget(),
+                              device=drv.device)
+        msys.upsert(default_timeout_assign())
+        server = WebhookServer(client, TARGET, agent_review=True,
+                               agent_mutation_system=msys)
+        server.start()
+        recs_m = agent_records(AGENT_SEED + 3, n_mutate, "mutate")
+        posts = [("/v1/agent/review", _agent_envelope(r)) for r in recs_m]
+        d0 = dispatches.get(AGENT_TARGET, 0)
+        l0 = dict(ops.LAUNCHES)
+        u0 = drv.kernel.uploads["delta_flushes"]
+        try:
+            bodies_m, lat, wall = _drive_http(server.port, posts, callers)
+            mb, vb = server.agent_mutate_batcher, server.agent_batcher
+            mutation = _load_stats(lat, wall, n_mutate,
+                                   vb.batches_dispatched, bodies_m)
+            mutation.update(
+                mutate_batches=mb.batches_dispatched,
+                screen_dispatches=msys.screen_dispatches,
+                batch_failures=mb.batch_failures + vb.batch_failures,
+                dispatches=dispatches.get(AGENT_TARGET, 0) - d0,
+                launches={k: v - l0[k] for k, v in ops.LAUNCHES.items()},
+                delta_flushes=drv.kernel.uploads["delta_flushes"] - u0,
+                late=sum(t > server.request_timeout for t in lat))
+        finally:
+            server.stop()
+        # every patch against the host path on the same review
+        target = AgentActionTarget()
+        patched, mutated_recs = 0, []
+        for r, body in zip(recs_m, bodies_m):
+            review = target.review_of(r)
+            muts, mat = msys.screen_host([review])
+            chosen = [m for j, m in enumerate(muts) if mat[j, 0]]
+            want = []
+            if chosen:
+                after, _ = msys.apply(review["object"], review, chosen)
+                want = json_patch(review["object"], after)
+            resp = body["response"]
+            got = json.loads(base64.b64decode(resp["patch"])) \
+                if resp.get("patch") else []
+            if got != want:
+                raise AssertionError(
+                    f"agent: the patch of {r['uid']} differs from the host "
+                    f"path: {got} != {want}")
+            patched += bool(got)
+            obj = apply_patch(review["object"], got) if got else None
+            mutated_recs.append(dict(
+                r, arguments=obj["spec"]["arguments"]) if obj else r)
+        mutation["patched"] = patched
+        step = max(1, n_mutate // (n_sample // 4))
+        sampled += [(mutated_recs[i], bodies_m[i])
+                    for i in range(0, n_mutate, step)]
+        out["mutation"] = mutation
+        _step("agent", "mutation load", t0)
+    finally:
+        drv._need_pairs = need_pairs
+        rec.remove()
+        out["readyz"] = watch.close()
+    # answers against the interpreter
+    t_s = time.perf_counter()
+    for r, body in sampled:
+        if _response_fields(body) != _expected_agent_response(oracle, r):
+            raise AssertionError(
+                f"agent: the answer to {r['uid']} differs from the "
+                f"interpreter: {_response_fields(body)}")
+    out["sample_checked"] = len(sampled)
+    out["sample_seconds"] = time.perf_counter() - t_s
+    loads = ("https", "framed", "mutation")
+    launches = {"agent": {k: sum(out[p]["launches"][k] for p in loads)
+                          for k in ops.LAUNCHES},
+                "agent_admit": policy["launches"]}
+    # K1 on the agent batches' own inputs: bit for bit against its plain
+    # version
+    k1_row = None
+    if k1_inputs:
+        ms, fb = k1_inputs[0]
+        o_k, o_p = ops.match_matrix(ms, fb), ops.match_matrix_plain(ms, fb)
+        if o_k.dtype != o_p.dtype or not torch.equal(o_k, o_p):
+            raise AssertionError("agent: K1 differs from its plain version")
+        if ms["kind_rows"].is_cuda:
+            bound_ms, bound_by, bytes_ms, ops_ms = _bound(
+                "match_matrix", (ms, fb), o_k)
+            k1_row = {
+                "shape": list(o_k.shape),
+                "launches": launches["agent"]["match_matrix"],
+                "max_abs_err": 0.0,
+                "ms": _device_ms(lambda: ops.match_matrix(ms, fb),
+                                 KERNEL_FUNCS["match_matrix"]),
+                "host_ms": _time_ms(lambda: ops.match_matrix(ms, fb)),
+                "plain_ms": _device_ms(
+                    lambda: ops.match_matrix_plain(ms, fb), reps=3),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+                "library_ms": None}
+    out.update(launches=launches, k1=k1_row, provider_requests=len(
+        stub.requests), seconds=time.perf_counter() - t0)
+    print(json.dumps(out, default=float), flush=True)
+    late = sum(out[k]["late"] for k in ("https", "framed", "mutation"))
+    fail_open = sum(out[k]["fail_open"] for k in ("https", "framed",
+                                                  "mutation"))
+    if late or fail_open or out["mutation"]["batch_failures"] or \
+            ab.batch_failures - f0 or out["readyz"]["not_200"]:
+        raise AssertionError(
+            f"agent: {fail_open} fail-open answers, {late} past the "
+            f"timeout, /readyz {out['readyz']}")
+    for k in ("https", "framed"):
+        if out[k]["dispatches"] != out[k]["batches"]:
+            raise AssertionError(
+                f"agent: {k}: {out[k]['dispatches']} fused dispatches for "
+                f"{out[k]['batches']} batches")
+    mutation = out["mutation"]
+    if mutation["screen_dispatches"] != mutation["mutate_batches"] or \
+            mutation["dispatches"] != mutation["batches"] or \
+            not mutation["patched"]:
+        raise AssertionError(f"agent: mutation: {mutation}")
+    if drv.device.type == "cuda":
+        # each load's own launches against its dispatches, screens and
+        # vocabulary delta flushes
+        wrong = {}
+        for p in loads:
+            load, n = out[p], out[p]["launches"]
+            d = load["dispatches"]
+            k2_each = n["slab_gather"] // max(1, d)
+            want = {"match_matrix": d + load.get("screen_dispatches", 0),
+                    "slab_gather": d * max(1, k2_each), "need_tail": d,
+                    "flush_deltas": load["delta_flushes"]}
+            got = {k: n[k] for k in want}
+            if got != want:
+                wrong[p] = {"launched": got, "expected": want}
+        missing = [k for k in PATH_KERNELS["agent"]
+                   if launches["agent"][k] <= 0]
+        if wrong or missing or k1_row is None:
+            raise AssertionError(
+                f"agent: the agent loads' launches: {wrong}; never "
+                f"launched by them: {missing}")
+    return launches, k1_row
+
+
 # -- fleet: a second replica on the same card --------------------------------
 
 FLEET_POD = "gatekeeper-tpu-b"
+
+
+def _review_path_warm(doc) -> bool:
+    """/readyz stats.driver.review_path_warm: every reviewed target warm."""
+    warm = ((doc or {}).get("stats") or {}).get("driver", {}).get(
+        "review_path_warm") or {}
+    return bool(warm) and all(warm.values())
 
 
 def _readyz(port: int):
@@ -5618,7 +6201,7 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
            "--prometheus-port", str(ports["metrics"]),
            "--cert-dir", os.path.join(work, "certs"),
            "--operation", "webhook", "--pod-name", FLEET_POD,
-           "--drain-grace", str(drain_grace)]
+           "--drain-grace", str(drain_grace), "--agent-review"]
     env = dict(os.environ, PYTHONPATH=ROOT, GATEKEEPER_TPU_FAULTS=faults)
     log_path = os.path.join(work, "b.log")
     out = {"phase": "fleet", "a": runner.pod_name, "b": FLEET_POD,
@@ -5641,9 +6224,8 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
         # Ready does not wait for the policy compile (the reference's
         # semantics); B's warm thread compiles it, and the loads start
         # once /readyz says the review path is warm
-        _wait_for(lambda: _readyz(ports["health"])[1].get("stats", {}).get(
-            "driver", {}).get("review_path_warm"), 300,
-            "replica B's review path to warm", step=0.2)
+        _wait_for(lambda: _review_path_warm(_readyz(ports["health"])[1]),
+                  300, "replica B's review path to warm", step=0.2)
         out["b_boot_to_warm_s"] = time.perf_counter() - t_boot
         _step("fleet", "B warm", t0)
 
@@ -5810,15 +6392,15 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
         out["readyz"] = {"a": fa, "b": fb,
                          "a_component": doc_a["stats"]["component/fleet"],
                          "b_component": doc_b["stats"]["component/fleet"]}
-        # A's status is printed, not required: a constraint kind created
-        # after Ready (extdata's) leaves its readiness tracker unpopulated,
-        # so A answers 503 (ROADMAP §C)
+        # A stays Ready although extdata's and agent's constraint kinds
+        # were created after Ready (C6, ROADMAP §C)
         out["readyz"].update(a_status=st_a, b_status=st_b)
         for doc, fl, peer in ((doc_a, fa, FLEET_POD),
                               (doc_b, fb, runner.pod_name)):
             comp = doc["stats"]["component/fleet"]
             if fl["peers"] != [peer] or fl["publish_failures"] or \
-                    comp["expected"] != comp["observed"] or st_b != 200:
+                    comp["expected"] != comp["observed"] or st_b != 200 \
+                    or st_a != 200:
                 raise AssertionError(f"fleet: /readyz: {out['readyz']}")
         launches = dict(ops.LAUNCHES)
 
@@ -6527,7 +7109,7 @@ def main() -> int:
     if "--runner" in sys.argv or "--fleet" in sys.argv:
         # the runner phase alone on the process defaults (its first
         # sweep's violations are not held against a full phase); with
-        # --fleet, then extdata, fleet and process on it
+        # --fleet, then extdata, agent, fleet and process on it
         sys.path.insert(0, ROOT)
         phase_card()
         api = ApiProcess(100_000, 500, catalogue=True)
@@ -6540,8 +7122,10 @@ def main() -> int:
         mark("runner")
         try:
             if "--fleet" in sys.argv:
-                phase_extdata(rec, state)
+                phase_extdata(rec, state, n_requests=512)
                 mark("extdata")
+                phase_agent(rec, state)
+                mark("agent")
                 phase_fleet(rec, state)
                 mark("fleet")
         finally:
@@ -6626,6 +7210,8 @@ def main() -> int:
         mark("mutation")
         launches_ext = phase_extdata(rec, state, n_requests=512)
         mark("extdata")
+        launches_agent, k1_agent = phase_agent(rec, state)
+        mark("agent")
         launches_fleet = phase_fleet(rec, state)
         mark("fleet")
     finally:
@@ -6644,8 +7230,10 @@ def main() -> int:
               "audit_churn": launches_churn,
               "inventory": launches_inv, "full_output": launches_out,
               "runner": launches_runner, "mutation": launches_mut,
-              "extdata": launches_ext, "fleet": launches_fleet},
-        extra={"match_matrix": {"mutation_screen": k1_mutation}},
+              "extdata": launches_ext, **launches_agent,
+              "fleet": launches_fleet},
+        extra={"match_matrix": {"mutation_screen": k1_mutation,
+                                "agent_review": k1_agent}},
     )
     mark("kernels")
     phase_variants()

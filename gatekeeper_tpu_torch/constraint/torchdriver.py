@@ -69,6 +69,15 @@ encodes the audit corpus a policy with row features overlays, ahead of
 the first batch (a batch that comes first waits for it on the serving
 mutex, never goes to the interpreter), and `review_path_warm` says
 whether it has for the current constraints.
+
+Constraint churn is counted per target as well as in all
+(`constraint_generation`): a target's compiled set, its warm state, its
+monolithic canaries' golden key, its render cache and its IR report are
+valid for its own generation (`_target_generation`), so creating the
+agent target's constraints on a serving process leaves the K8s set
+compiled, staged and warm. The partition plane's subset sets follow
+their target's generation too; its plans follow the generation of all
+targets (`constraint_generation`), as in the reference.
 """
 
 from __future__ import annotations
@@ -178,6 +187,7 @@ class _Corpus:
 class _ConstraintSet:
     """Compiled constraint-side state, cached until constraints change."""
 
+    # its target's constraint generation (_target_generation)
     constraint_gen: int
     constraints: List[Dict[str, Any]]
     ms: Dict[str, np.ndarray]
@@ -233,6 +243,8 @@ class TorchDriver(RegoDriver):
         self._programs: Dict[Tuple[str, str, str], Optional[Program]] = {}
         self._data_gen = 0
         self._constraint_gen = 0
+        # target -> its constraint generation (_target_generation)
+        self._target_gens: Dict[str, int] = {}
         self._corpus: Dict[str, _Corpus] = {}
         self._cset: Dict[str, _ConstraintSet] = {}
         # target -> the constraint generation warm_review_path compiled
@@ -335,7 +347,7 @@ class TorchDriver(RegoDriver):
         self._ir_hashes.pop((target, kind), None)
         self._ir_reports.pop(target, None)
         self._cset.pop(target, None)
-        self._constraint_gen += 1
+        self._note_constraint_change(target)
 
     def put_data(self, path: str, data: Any) -> None:
         super().put_data(path, data)
@@ -367,7 +379,28 @@ class TorchDriver(RegoDriver):
             if p.startswith("external") or not p:
                 self._data_gen += 1
             if p.startswith("constraints") or not p:
-                self._constraint_gen += 1
+                # "constraints/<target>/...": that target's churn; the
+                # root or "constraints" itself: every target's
+                parts = p.split("/")
+                self._note_constraint_change(
+                    parts[1] if len(parts) > 1 and parts[1] else None
+                )
+
+    def _note_constraint_change(self, target: Optional[str]) -> None:
+        """Count one constraint or template change of `target` (None:
+        of every target). Caller holds the mutex."""
+        self._constraint_gen += 1
+        targets = list(self._target_gens) if target is None else [target]
+        for t in targets:
+            self._target_gens[t] = self._target_gens.get(t, 0) + 1
+
+    def _target_generation(self, target: str) -> int:
+        """The constraint generation of `target` alone: it moves with the
+        changes of that target's constraints and templates, and with
+        changes of every target's, not with another target's. State
+        cached for a target was keyed by this, which enters the target
+        in `_target_gens`, so a change of every target reaches it."""
+        return self._target_gens.setdefault(target, 0)
 
     # -- program compilation -------------------------------------------------
 
@@ -664,8 +697,9 @@ class TorchDriver(RegoDriver):
         return prog
 
     def _constraint_set(self, target: str) -> Optional[_ConstraintSet]:
+        gen = self._target_generation(target)
         cs = self._cset.get(target)
-        if cs is not None and cs.constraint_gen == self._constraint_gen:
+        if cs is not None and cs.constraint_gen == gen:
             return cs
         constraints = self._constraints(target)
         if not constraints:
@@ -680,7 +714,7 @@ class TorchDriver(RegoDriver):
         for key in [k for k in self._programs if k[0] == target and k not in live]:
             del self._programs[key]
         cs = _ConstraintSet(
-            constraint_gen=self._constraint_gen,
+            constraint_gen=gen,
             constraints=constraints,
             ms=matchspec_to_np(ms),
             programs=programs,
@@ -711,7 +745,7 @@ class TorchDriver(RegoDriver):
         Client.warm_review_path once the state is ingested and after each
         constraint change. No kernel compiles per batch shape."""
         with self._mutex:
-            gen = self._constraint_gen
+            gen = self._target_generation(target)
             cs = self._constraint_set(target)
             reviews = list(reviews)
             if cs is not None:
@@ -724,9 +758,11 @@ class TorchDriver(RegoDriver):
         return True
 
     def review_path_warm(self, target: str) -> bool:
-        """True when warm_review_path compiled `target`'s set for the
+        """True when warm_review_path compiled `target`'s set for its
         current constraint generation."""
-        return self._review_warm.get(target) == self._constraint_gen
+        return self._review_warm.get(target) == self._target_generation(
+            target
+        )
 
     def constraint_generation(self) -> int:
         """Constraint/template churn only (the base driver's data version
@@ -771,8 +807,9 @@ class TorchDriver(RegoDriver):
         carry-forward. Memoized per constraint generation (caller holds
         the mutex)."""
         key = (target, subset)
+        gen = self._target_generation(target)
         hit = self._sig_cache.get(key)
-        if hit is not None and hit[0] == self._constraint_gen:
+        if hit is not None and hit[0] == gen:
             return hit[1]
         parts = []
         for c in self._constraints(target):
@@ -789,7 +826,7 @@ class TorchDriver(RegoDriver):
         sig = hashlib.sha256(json.dumps(["", parts]).encode()).hexdigest()[:16]
         if len(self._sig_cache) >= 4 * self._cset_sub_max:
             self._sig_cache.pop(next(iter(self._sig_cache)), None)
-        self._sig_cache[key] = (self._constraint_gen, sig)
+        self._sig_cache[key] = (gen, sig)
         return sig
 
     def subset_signature(self, target: str, subset) -> str:
@@ -807,7 +844,7 @@ class TorchDriver(RegoDriver):
             cs = self._cset_sub.get((target, fs))
             if cs is None or cs.policy is None:
                 return False
-            if cs.constraint_gen == self._constraint_gen:
+            if cs.constraint_gen == self._target_generation(target):
                 return True
             return (
                 cs.signature is not None
@@ -839,7 +876,7 @@ class TorchDriver(RegoDriver):
         sig = self._subset_signature(target, subset)
         if cs.signature is None or cs.signature != sig:
             return False
-        cs.constraint_gen = self._constraint_gen
+        cs.constraint_gen = self._target_generation(target)
         self.subset_carryforwards += 1
         self._count("program_carryforward_total", target=target)
         return True
@@ -854,7 +891,9 @@ class TorchDriver(RegoDriver):
         cached set forward instead of rebuilding it."""
         key = (target, subset)
         cs = self._cset_sub.get(key)
-        if cs is not None and cs.constraint_gen == self._constraint_gen:
+        if cs is not None and cs.constraint_gen == self._target_generation(
+            target
+        ):
             return cs
         if cs is not None and self._carry_forward(target, subset, cs):
             return cs
@@ -888,7 +927,7 @@ class TorchDriver(RegoDriver):
         ms = self._handler(target).compile_match_specs(constraints, self.vocab)
         programs = [self._program_for(target, c) for c in constraints]
         return _ConstraintSet(
-            constraint_gen=self._constraint_gen,
+            constraint_gen=self._target_generation(target),
             constraints=constraints,
             ms=matchspec_to_np(ms),
             programs=programs,
@@ -1118,7 +1157,7 @@ class TorchDriver(RegoDriver):
         fused-path taxonomy, liveness summary and specialization
         certificates; computed once per constraint generation."""
         ent = self._ir_reports.get(target)
-        if ent is not None and ent[0] == self._constraint_gen:
+        if ent is not None and ent[0] == self._target_generation(target):
             return ent[1]
         from ..analysis.ir import ir_from_programs
 
@@ -1126,7 +1165,7 @@ class TorchDriver(RegoDriver):
             cs = self._constraint_set(target)
             if cs is None:
                 return None
-            gen = self._constraint_gen
+            gen = self._target_generation(target)
             items = [
                 (
                     f"constraint:{c.get('kind')}/"
@@ -1148,7 +1187,9 @@ class TorchDriver(RegoDriver):
         if report is None:
             return
         with self._mutex:
-            self._ir_reports[target] = (self._constraint_gen, report)
+            self._ir_reports[target] = (
+                self._target_generation(target), report
+            )
 
     # -- device dispatch -----------------------------------------------------
 
@@ -1521,8 +1562,8 @@ class TorchDriver(RegoDriver):
             )
         with self._serving():
             # the monolithic dispatch's canaries: golden keyed per
-            # constraint generation, attributed to logical device 0
-            sigkey = f"gen{self._constraint_gen}"
+            # generation of the target, attributed to logical device 0
+            sigkey = f"gen{self._target_generation(target)}"
             canaries = self._canary_pack(
                 target, sigkey, self._constraints(target), len(inputs)
             )
@@ -1608,7 +1649,7 @@ class TorchDriver(RegoDriver):
             cs = self._subset_cset(target, frozenset(subset))
             if cs is None:
                 return [Response(target=target, results=[]) for _ in inputs]
-            sigkey = cs.signature or f"gen{self._constraint_gen}"
+            sigkey = cs.signature or f"gen{self._target_generation(target)}"
             canaries = self._canary_pack(
                 target, sigkey, cs.constraints, len(inputs)
             )
@@ -1644,7 +1685,7 @@ class TorchDriver(RegoDriver):
         fs = frozenset(subset)
         fire(device_point("driver.restage", device))
         with self._mutex:
-            gen = self._constraint_gen
+            gen = self._target_generation(target)
             cs = self._cset_sub.get((target, fs))
             if (
                 cs is not None and cs.constraint_gen != gen
@@ -1667,7 +1708,7 @@ class TorchDriver(RegoDriver):
             return False
         fire("compile.swap")
         with self._mutex:
-            if self._constraint_gen != gen:
+            if self._target_generation(target) != gen:
                 return False
             self._cset_sub.pop((target, fs), None)
             while len(self._cset_sub) >= self._cset_sub_max:
@@ -1686,7 +1727,7 @@ class TorchDriver(RegoDriver):
         always runs on the device."""
         from ..integrity.canary import result_digest
 
-        sigkey = shadow.signature or f"gen{self._constraint_gen}"
+        sigkey = shadow.signature or f"gen{self._target_generation(target)}"
         try:
             entry = self.integrity.golden_for(
                 target, sigkey, shadow.constraints,
@@ -1804,7 +1845,7 @@ class TorchDriver(RegoDriver):
             prune_s0 = self._prune_build_s
             render_cache = None
             if corpus.data_gen >= 0 and trace is None:
-                gens = (self._data_gen, self._constraint_gen)
+                gens = (self._data_gen, self._target_generation(target))
                 cached = self._render_cache.get(target)
                 if cached is None or cached[0] != gens:
                     cached = (gens, OrderedDict())

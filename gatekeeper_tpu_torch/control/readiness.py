@@ -1,4 +1,11 @@
-# Copied from gatekeeper_tpu/control/readiness.py; unchanged.
+# Copied from gatekeeper_tpu/control/readiness.py; only this edit differs.
+# Edit: ReadinessTracker.satisfied() latches (ROADMAP §C, C6). Once it has
+# returned True it stays True for the process, as Gatekeeper's tracker does
+# (ready_tracker.go:138-173): a tracker created after that, such as the one
+# for a constraint kind whose template arrived after Ready, still counts
+# its own stats() but no longer gates readiness. The reference requires
+# every tracker on every call, so a kind first seen after Ready leaves
+# /readyz at 503 for good.
 """Readiness tracker: the boot-time barrier.
 
 Mirrors pkg/readiness/ready_tracker.go + object_tracker.go: at startup
@@ -83,6 +90,9 @@ class ReadinessTracker:
         # replica is not Ready before the shared cert store resolved
         # and the state plane synced (docs/fleet.md)
         self._components: Dict[str, ObjectTracker] = {}
+        # the aggregate's one-way circuit breaker: set by the first
+        # satisfied() that found every tracker satisfied
+        self._latched = False
 
     def for_constraint_kind(self, kind: str) -> ObjectTracker:
         with self._lock:
@@ -107,13 +117,19 @@ class ReadinessTracker:
 
     def satisfied(self) -> bool:
         with self._lock:
+            if self._latched:
+                return True
             trackers = (
                 [self.templates, self.config]
                 + list(self._constraints.values())
                 + list(self._data.values())
                 + list(self._components.values())
             )
-        return all(t.satisfied() for t in trackers)
+        if not all(t.satisfied() for t in trackers):
+            return False
+        with self._lock:
+            self._latched = True
+        return True
 
     def stats(self) -> Dict[str, Dict[str, int]]:
         with self._lock:

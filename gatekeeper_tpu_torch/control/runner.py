@@ -1,9 +1,8 @@
 # Copied from gatekeeper_tpu/control/runner.py; only these edits differ.
-# Edit: planes that are not ported are left out with their arguments and
-# wiring: the `FlightRecorder` (ROADMAP A10; the SloEngine and the
-# IntegrityPlane get recorder=None, /debug/flightrecords is not served and
-# no state source is registered, the fleet plane's included) and the agent
-# plane (A10; no `device:agent` breaker gossips).
+# Edit: the `FlightRecorder` (ROADMAP A10) is not ported and is left out
+# with its wiring: the SloEngine and the IntegrityPlane get recorder=None,
+# /debug/flightrecords is not served and no state source is registered,
+# the fleet plane's included.
 # Edit: the MutationSystem screens on the driver's device (its `device`;
 # the card unless the caller asked for the CPU).
 # Edit: `capture_jax_profile` is `capture_torch_profile`: /debug/profile
@@ -13,7 +12,11 @@
 # stages the policy, so the warm thread warms the review path as the
 # reference's does, and /readyz `stats.driver` carries
 # `review_path_warm`: a webhook-only replica is Ready before its policy
-# is compiled, and its first batch would otherwise compile it.
+# is compiled, and its first batch would otherwise compile it. The warm
+# thread warms every target the webhook reviews (the agent target beside
+# the K8s one, WebhookServer.review_targets) and polls each, and
+# `review_path_warm` maps each of those targets to its state; the
+# reference's warms and reports its validation target only.
 # Edit: stop() also closes the readyz listener's socket.
 # Edit: the webhook's Namespace lookups read a cache fed by a Namespace
 # watch (registrar "namespace-cache"), asking the apiserver only on a
@@ -549,6 +552,11 @@ class Runner:
         if OPERATION_WEBHOOK in self.operations:
             from ..webhook.server import WebhookServer
 
+            # the agent-action serving plane mounts automatically
+            # when the client was built with the agent target
+            # registered (docs/targets.md)
+            from ..agentaction import TARGET_NAME as _AGENT_TARGET
+
             self._namespace_registrar.add_watch(NAMESPACE_GVK)
 
             rotator = None
@@ -581,6 +589,9 @@ class Runner:
             self.webhook = WebhookServer(
                 self.client,
                 self.target,
+                agent_review=(
+                    _AGENT_TARGET in getattr(self.client, "targets", {})
+                ),
                 port=self.webhook_port,
                 excluder=self.excluder,
                 namespace_getter=self._get_namespace,
@@ -632,6 +643,7 @@ class Runner:
                 for plane_name, batcher in (
                     ("device:validation", self.webhook.batcher),
                     ("device:mutation", self.webhook.mutate_batcher),
+                    ("device:agent", self.webhook.agent_batcher),
                 ):
                     if batcher is not None and batcher.breaker is not None:
                         self.fleet.register_breaker(
@@ -706,14 +718,16 @@ class Runner:
                 gc.set_threshold(*GC_THRESHOLDS)
                 self.webhook.warmup()
                 drv = getattr(self.client, "_driver", None)
-                check = getattr(drv, "review_path_warm", None)
+                warm = getattr(drv, "review_path_warm", None)
+                targets = self.webhook.review_targets()
                 delay = 2.0
-                while check is not None and not self._warm_stop.wait(delay):
-                    if check(self.target):
+                while warm is not None and not self._warm_stop.wait(delay):
+                    cold = [t for t in targets if not warm(t)]
+                    if not cold:
                         delay = 2.0
                         continue
-                    self.webhook.warmup()
-                    if check(self.target):
+                    self.webhook.warmup(targets=cold)
+                    if all(warm(t) for t in targets):
                         delay = 2.0
                     else:
                         # deterministic compile failure: back off instead
@@ -1052,9 +1066,14 @@ class Runner:
                         }
                         warm = getattr(drv, "review_path_warm", None)
                         if warm is not None:
-                            stats["driver"]["review_path_warm"] = warm(
-                                runner.target
+                            targets = (
+                                runner.webhook.review_targets()
+                                if runner.webhook is not None
+                                else [runner.target]
                             )
+                            stats["driver"]["review_path_warm"] = {
+                                t: warm(t) for t in targets
+                            }
                     # cost-attribution and decision-log headlines (full
                     # payloads live at /debug/costs and /debug/decisions)
                     stats["obs"] = {

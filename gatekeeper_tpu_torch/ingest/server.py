@@ -1,8 +1,4 @@
-# Copied from gatekeeper_tpu/ingest/server.py; only this edit differs.
-# Edit: the port's WebhookServer has no agent plane (ROADMAP A10), so an
-# agent frame is answered by its frame type with the reference's 404 for a
-# plane that is off ("agent review not enabled"), not by testing
-# agent_handler.
+# Copied from gatekeeper_tpu/ingest/server.py; unchanged.
 """IngestServer: frames in, verdict envelopes out (docs/ingest.md).
 
 Glue between the framed transport and the existing admission planes.
@@ -197,9 +193,13 @@ class IngestServer:
                     request, trace_id=trace_id
                 )
             elif frame.ftype == PLANE_AGENT:
-                return 404, json.dumps(
-                    {"error": "agent review not enabled"}
-                ).encode("utf-8")
+                if webhook.agent_handler is None:
+                    return 404, json.dumps(
+                        {"error": "agent review not enabled"}
+                    ).encode("utf-8")
+                resp = webhook.agent_handler.handle(
+                    request, trace_id=trace_id
+                )
             else:
                 with webhook.handler.deadline_scope(deadline):
                     resp = webhook.handler.handle(

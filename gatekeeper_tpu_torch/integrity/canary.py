@@ -1,6 +1,4 @@
-# Copied from gatekeeper_tpu/integrity/canary.py; only these edits differ.
-# Edit: the agent-action target's canaries (synth_agent_reviews,
-# _mine_agent) are left out with the agent plane (ROADMAP A10).
+# Copied from gatekeeper_tpu/integrity/canary.py; unchanged.
 """Canary synthesis + verdict digesting (docs/robustness.md §Verdict
 integrity).
 
@@ -32,6 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 __all__ = [
     "result_digest",
     "split_digests",
+    "synth_agent_reviews",
     "synth_reviews",
 ]
 
@@ -227,6 +226,138 @@ def synth_reviews(
                 }
             }
         reviews.append(review)
+    return reviews
+
+
+def _mine_agent(constraints: Sequence[Dict[str, Any]]) -> Dict[str, list]:
+    """Parameter/match atoms for agent-action canaries: concrete tool
+    names satisfying the constraints' tool globs, capability label
+    keys their selectors require, and the allow-list values (commands,
+    domains, required argument names) the parameters pin."""
+    tools: List[str] = []
+    caps: List[str] = []
+    allowed: List[str] = []
+    domains: List[str] = []
+    required: List[str] = []
+    for c in constraints:
+        spec = c.get("spec") or {}
+        match = spec.get("match") or {}
+        for t in match.get("tools") or []:
+            if not isinstance(t, str):
+                continue
+            if t == "*":
+                tool = "canary.invoke"
+            elif t.endswith(".*"):
+                tool = f"{t[:-2]}.canary"
+            else:
+                tool = t
+            if tool not in tools:
+                tools.append(tool)
+        sel = match.get("capabilities")
+        if isinstance(sel, dict):
+            for k in (sel.get("matchLabels") or {}):
+                if isinstance(k, str) and k not in caps:
+                    caps.append(k)
+            for expr in sel.get("matchExpressions") or []:
+                k = (expr or {}).get("key")
+                if isinstance(k, str) and (expr or {}).get(
+                    "operator"
+                ) in ("Exists", "In") and k not in caps:
+                    caps.append(k)
+        params = spec.get("parameters") or {}
+        if isinstance(params, dict):
+            for key, into in (
+                ("allowed", allowed),
+                ("domains", domains),
+                ("required", required),
+            ):
+                v = params.get(key)
+                if isinstance(v, list):
+                    into.extend(x for x in v if isinstance(x, str))
+    return {
+        "tools": tools,
+        "caps": caps,
+        "allowed": allowed,
+        "domains": domains,
+        "required": required,
+    }
+
+
+def synth_agent_reviews(
+    constraints: Sequence[Dict[str, Any]],
+    k: int = DEFAULT_K,
+) -> List[Dict[str, Any]]:
+    """Deterministic agent-action canaries (the agent.action target's
+    counterpart of synth_reviews), normalized through
+    AgentActionTarget.review_of — the exact serving shape. Three
+    variants cycle: empty-arguments (trips required-argument shapes),
+    compliant (signed skill, allow-listed values), and bad-values
+    (denied command/host, unsigned skill, a `bad`-keyed skill digest so
+    pinned-stub external-data lookups answer with an error)."""
+    from ..agentaction import AgentActionTarget
+
+    mined = _mine_agent(constraints)
+    seed = _stable(
+        "|".join(
+            sorted(
+                f'{c.get("kind", "")}/'
+                f'{(c.get("metadata") or {}).get("name", "")}'
+                for c in constraints
+            )
+        )
+    )
+    tools = mined["tools"] or ["canary.invoke"]
+    target = AgentActionTarget()
+    reviews: List[Dict[str, Any]] = []
+    for i in range(max(1, int(k))):
+        compliant = i % 3 == 1
+        if compliant:
+            arguments: Dict[str, Any] = {
+                r: "integrity-canary" for r in mined["required"]
+            }
+            arguments["command"] = (
+                mined["allowed"][0] if mined["allowed"] else "true"
+            )
+            arguments["host"] = (
+                mined["domains"][0] if mined["domains"]
+                else "canary.example.com"
+            )
+            skill = {
+                "name": "integrity-canary-skill",
+                "signed": True,
+                "publisher": "first-party",
+                "digest": f"pinned-canary-{seed:08x}",
+            }
+        elif i % 3 == 2:
+            # bad-values variant: present but denied everywhere
+            arguments = {r: "integrity-canary" for r in mined["required"]}
+            arguments["command"] = "integrity-canary-denied"
+            arguments["host"] = "canary.invalid"
+            skill = {
+                "name": "integrity-canary-skill",
+                "signed": False,
+                "publisher": "integrity-canary",
+                "digest": f"bad-canary-{seed:08x}",
+            }
+        else:
+            # empty-arguments variant: trips required-argument shapes
+            arguments = {}
+            skill = {
+                "name": "integrity-canary-skill",
+                "signed": False,
+                "publisher": "integrity-canary",
+                "digest": f"bad-canary-{seed:08x}",
+            }
+        record = {
+            "id": f"integrity-canary-{seed:08x}-{i}",
+            "agent": "system:integrity-canary",
+            "session": "integrity-canary",
+            "tool": tools[i % len(tools)],
+            "arguments": arguments,
+            "capabilities": list(mined["caps"]) or ["integrity-canary"],
+            "skill": skill,
+        }
+        reviews.append(target.review_of(record))
     return reviews
 
 

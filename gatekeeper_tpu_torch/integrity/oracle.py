@@ -240,11 +240,16 @@ def _digest_rows(results) -> List[Any]:
 
 
 def _build_client(templates: Sequence[dict], constraints: Sequence[dict]):
-    from ..constraint.client import Backend
+    """An interpreter client over the policy. It registers both targets
+    the port serves, so a policy that holds agent-action templates beside
+    the K8s ones loads whole; only K8s reviews are sampled."""
+    from ..agentaction import AgentActionTarget
+    from ..constraint import Backend, K8sValidationTarget
     from ..constraint.driver import RegoDriver
-    from ..constraint.target import K8sValidationTarget
 
-    client = Backend(RegoDriver()).new_client(K8sValidationTarget())
+    client = Backend(RegoDriver()).new_client(
+        K8sValidationTarget(), AgentActionTarget()
+    )
     for t in templates:
         client.add_template(t)
     for c in constraints:

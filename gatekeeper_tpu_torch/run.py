@@ -2,9 +2,8 @@
 # Edit: the client's driver is TorchDriver; build_runner takes `device`
 # (None = "cuda", which raises without a card; tests pass "cpu"), and no
 # flag sets it. main's start-up log names the device.
-# Edit: the flag of a plane that is not ported is left out:
-# --agent-review (ROADMAP A10); the metrics server gets no flight
-# recorder (A10).
+# Edit: the metrics server gets no flight recorder (not ported, ROADMAP
+# A10).
 """Process entry point: `python -m gatekeeper_tpu_torch.run` — the main.go
 analog (reference main.go:80-308).
 
@@ -129,6 +128,10 @@ def build_parser() -> argparse.ArgumentParser:
     # regression back to the plane without a rebuild
     p.add_argument("--no-integrity", dest="integrity",
                    action="store_false", default=True)
+    # agent-action admission (docs/targets.md): registers the
+    # AgentActionTarget so agent templates ingest and the webhook
+    # serves POST /v1/agent/review
+    p.add_argument("--agent-review", action="store_true")
     p.add_argument("--kube-url", default=None)
     p.add_argument("--kube-token", default=None)
     p.add_argument("--kube-ca", default=None)
@@ -158,9 +161,12 @@ def build_runner(args, log=None, webhook_tls: bool = True, device=None):
         verify=not args.kube_insecure,
         logger=log,
     )
-    client = Backend(TorchDriver(device=device)).new_client(
-        K8sValidationTarget()
-    )
+    targets = [K8sValidationTarget()]
+    if getattr(args, "agent_review", False):
+        from .agentaction import AgentActionTarget
+
+        targets.append(AgentActionTarget())
+    client = Backend(TorchDriver(device=device)).new_client(*targets)
     operations = tuple(args.operation) if args.operation else (
         "webhook", "audit", "status"
     )

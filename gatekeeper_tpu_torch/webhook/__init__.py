@@ -8,8 +8,9 @@ on TorchDriver, served over HTTP by `WebhookServer` and, with
 `ingest=True`, over the framed stream of gatekeeper_tpu_torch/ingest), and
 the native HTTP front's Python back half (bridge.py: `BridgeStack`, the C++
 front of native/bridge_frontend.cpp feeding the same batcher), and TLS
-certificates (certs.py: `CertRotator`, `CaBundleInjector`). Mutation and
-the agent plane are not ported (ROADMAP A5, A10).
+certificates (certs.py: `CertRotator`, `CaBundleInjector`). The mutation
+plane is mutate.py; `WebhookServer(agent_review=True)` mounts the agent
+plane of gatekeeper_tpu_torch/agentaction at /v1/agent/review.
 """
 
 from .certs import CaBundleInjector, CertRotator

@@ -25,11 +25,15 @@
 # Edit: WebhookServer also hands `integrity` and `attributor` to the
 # driver (set_integrity, set_attributor), as the reference's Runner does,
 # so a server built without the Runner wires them too.
-# Edit: planes that are not ported are left out with their arguments:
-# the agent plane (ROADMAP A10) and the flight recorder (A10). A path
-# other than /v1/admit, /v1/admitlabel and /v1/mutate is answered 404,
-# so the /readyz and /debug/partitions, /debug/programs documents are not
-# served (the dispatcher's plan_table and programs_table build them).
+# Edit: the flight recorder (ROADMAP A10) is not ported and is left out
+# with its argument. A path other than /v1/admit, /v1/admitlabel,
+# /v1/mutate and /v1/agent/review is answered 404, so the /readyz and
+# /debug/partitions, /debug/programs documents are not served (the
+# dispatcher's plan_table and programs_table build them).
+# Edit: warmup() warms every plane's target: the validation target and,
+# with the agent plane on, the agent target from its own sample tool calls
+# (the reference's warms the validation target only, so the agent
+# target's first batch compiled its policy).
 # Edit: with TLS, each connection's handshake runs on that connection's
 # thread (`do_handshake_on_connect=False`, `_Server.finish_request`). The
 # reference wraps the listening socket with the default, so accept()
@@ -949,8 +953,8 @@ class BatchedValidationHandler(ValidationHandler):
 
 class WebhookServer:
     """Stdlib HTTP(S) server: POST /v1/admit, /v1/admitlabel and
-    /v1/mutate with AdmissionReview JSON bodies, over HTTP/1.1
-    keep-alive. `tls=True`
+    /v1/mutate with AdmissionReview JSON bodies, and /v1/agent/review
+    with tool-call records, over HTTP/1.1 keep-alive. `tls=True`
     terminates HTTPS with the rotating self-signed pair from
     `certs.CertRotator` (cert_dir defaults to a per-server temp dir)."""
 
@@ -993,6 +997,12 @@ class WebhookServer:
         # the pod IP surface ("0.0.0.0") or the apiserver and kubelet
         # probes can never connect
         bind_addr: str = "127.0.0.1",
+        # agent-action plane (docs/targets.md): True wires
+        # POST /v1/agent/review over the client's registered
+        # AgentActionTarget; agent_mutation_system additionally screens
+        # and rewrites tool-call arguments before validation
+        agent_review: bool = False,
+        agent_mutation_system=None,
         # graceful drain: seconds stop() holds the listener OPEN after
         # flipping readiness, so a load balancer watching readiness
         # routes away before connections start failing (the
@@ -1131,6 +1141,31 @@ class WebhookServer:
             decision_log=decision_log,
         )
         self.label_handler = NamespaceLabelHandler(exempt_namespaces)
+        self.agent_batcher = None
+        self.agent_mutate_batcher = None
+        self.agent_handler = None
+        if agent_review:
+            from ..agentaction import make_agent_plane
+
+            (
+                self.agent_batcher,
+                self.agent_mutate_batcher,
+                self.agent_handler,
+            ) = make_agent_plane(
+                client,
+                window_ms=window_ms,
+                mutation_system=agent_mutation_system,
+                metrics=metrics,
+                tracer=tracer,
+                logger=logger,
+                fail_policy=fail_policy,
+                request_timeout=request_timeout,
+                max_queue=max_queue,
+                decision_log=decision_log,
+                sched_policy=sched_policy,
+                slo=slo,
+                attributor=attributor,
+            )
         self.ingest = None
         if ingest:
             # local import: ingest.server imports review_envelope back
@@ -1222,6 +1257,16 @@ class WebhookServer:
                             self.send_response(404)
                             raise _Handled()
                         resp = outer.mutation_handler.handle(
+                            request, trace_id=trace_id
+                        )
+                    elif self.path == "/v1/agent/review":
+                        if outer.agent_handler is None:
+                            payload = json.dumps(
+                                {"error": "agent review not enabled"}
+                            ).encode()
+                            self.send_response(404)
+                            raise _Handled()
+                        resp = outer.agent_handler.handle(
                             request, trace_id=trace_id
                         )
                     else:
@@ -1326,6 +1371,10 @@ class WebhookServer:
         self.batcher.start()
         if self.mutate_batcher is not None:
             self.mutate_batcher.start()
+        if self.agent_batcher is not None:
+            self.agent_batcher.start()
+        if self.agent_mutate_batcher is not None:
+            self.agent_mutate_batcher.start()
         if self.ingest is not None:
             self.ingest.start()
         self._thread = threading.Thread(
@@ -1333,30 +1382,42 @@ class WebhookServer:
         )
         self._thread.start()
 
-    def warmup(self, sample_objects=None) -> float:
+    def warmup(self, sample_objects=None, targets=None) -> float:
         """Run the fused review path once per common batch shape so the
-        first real admission request finds the driver's policy staged.
-        Returns seconds spent."""
+        first real admission request finds the driver's policy staged:
+        for each of `targets` (default review_targets(): the validation
+        plane's target and, with the agent plane on, the agent target,
+        from its own sample tool calls). `sample_objects` replaces the
+        validation target's samples. Returns seconds spent."""
         from ..constraint.handler import handler_for
 
         t0 = time.monotonic()
-        handler = handler_for(self.client, self.batcher.target)
-        if sample_objects is None:
-            # the target supplies shape-covering synthetic requests
-            requests = handler.sample_requests(192)
-        else:
-            requests = sample_objects
-        reviews = [handler.augment_request(r) for r in requests]
         # The attribute/callable resolution stays OUTSIDE the try; only
         # the warm run itself is best-effort.
         warm = self.client.warm_review_path
-        for batch in (reviews[:16], reviews[:100], reviews):
-            try:
-                warm(batch)
-            except Exception:
-                pass  # warmup is best-effort; serving works unwarmed
+        for target in self.review_targets() if targets is None else targets:
+            handler = handler_for(self.client, target)
+            # the target supplies shape-covering synthetic requests
+            if target == self.batcher.target and sample_objects is not None:
+                requests = sample_objects
+            else:
+                requests = handler.sample_requests(192)
+            reviews = [handler.augment_request(r) for r in requests]
+            for batch in (reviews[:16], reviews[:100], reviews):
+                try:
+                    warm(batch)
+                except Exception:
+                    pass  # warmup is best-effort; serving works unwarmed
         self.warm = True
         return time.monotonic() - t0
+
+    def review_targets(self) -> List[str]:
+        """The targets this server's review planes dispatch: the
+        validation plane's and, with the agent plane on, the agent's."""
+        out = [self.batcher.target]
+        if self.agent_batcher is not None:
+            out.append(self.agent_batcher.target)
+        return out
 
     def sched_snapshot(self) -> Dict[str, Any]:
         """Per-plane admission-scheduler state (the reference's
@@ -1364,6 +1425,12 @@ class WebhookServer:
         out = {"validation": self.batcher.sched.snapshot()}
         if self.mutate_batcher is not None:
             out["mutation"] = self.mutate_batcher.sched.snapshot()
+        if self.agent_batcher is not None:
+            out["agent"] = self.agent_batcher.sched.snapshot()
+        if self.agent_mutate_batcher is not None:
+            out["agent_mutation"] = (
+                self.agent_mutate_batcher.sched.snapshot()
+            )
         return out
 
     # -- graceful drain ------------------------------------------------------
@@ -1428,6 +1495,10 @@ class WebhookServer:
         self.batcher.stop()
         if self.mutate_batcher is not None:
             self.mutate_batcher.stop()
+        if self.agent_batcher is not None:
+            self.agent_batcher.stop()
+        if self.agent_mutate_batcher is not None:
+            self.agent_mutate_batcher.stop()
         if self.partitioner is not None:
             self.partitioner.close()
         if self._thread is not None:

@@ -353,8 +353,8 @@ def test_warm_thread_ends_without_a_compile_step(booted):
     state is ingested (TorchDriver.warm_review_path), before any batch
     asks for it, and polls review_path_warm as the reference's does: a
     constraint change is compiled again without a batch. /readyz
-    stats.driver carries review_path_warm. The thread keeps polling until
-    the Runner stops."""
+    stats.driver carries review_path_warm for each target the webhook
+    reviews. The thread keeps polling until the Runner stops."""
     cluster, runner = booted
     drv = runner.client._driver
     t = runner._warm_thread
@@ -373,7 +373,7 @@ def test_warm_thread_ends_without_a_compile_step(booted):
         f"http://127.0.0.1:{runner.readyz_port}/readyz", timeout=30
     ) as resp:
         body = json.loads(resp.read())
-    assert body["stats"]["driver"]["review_path_warm"] is True
+    assert body["stats"]["driver"]["review_path_warm"] == {TARGET: True}
 
 
 def test_template_update_churn(booted):
@@ -1215,3 +1215,219 @@ def test_runner_freezes_each_sweep_and_sets_collector_thresholds(
     finally:
         runner.stop()
     assert gc.get_threshold() == kept
+
+
+# ---------------------------------------------------------------------------
+# C6: Ready latches for good, as Gatekeeper's tracker does
+
+
+def _readyz(port):
+    try:
+        with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/readyz", timeout=30
+        ) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, None
+
+
+def _new_kind_after_ready(cluster, tracker):
+    """A template and a constraint of a kind first seen after Ready; wait
+    until the constraint's tracker has observed it."""
+    cluster.apply(template("K8sDenyAll", DENY_ALL))
+    cluster.apply(constraint("K8sDenyAll", "deny-everything"))
+    assert _wait(lambda: "constraint/K8sDenyAll" in tracker.stats(), 30)
+
+
+def test_ready_latches_when_a_constraint_kind_arrives_after_ready(booted):
+    """C6: once Ready, a port Runner stays Ready when a template and a
+    constraint of a new kind are created; the new kind's tracker still
+    counts its own stats."""
+    cluster, runner = booted
+    assert _readyz(runner.readyz_port)[0] == 200
+    _new_kind_after_ready(cluster, runner.tracker)
+    assert _wait(lambda: any(
+        c.get("kind") == "K8sDenyAll"
+        for c in runner.client._driver._constraints(TARGET)), 30)
+    runner.watch_mgr.wait_idle(10)
+    code, body = _readyz(runner.readyz_port)
+    assert code == 200, runner.tracker.stats()
+    assert "constraint/K8sDenyAll" in runner.tracker.stats()
+    assert runner.tracker.satisfied()
+    # the latch is the aggregate's: a bare tracker unlatched stays so
+    assert not runner.tracker.for_constraint_kind("Never").satisfied()
+    assert runner.tracker.satisfied()
+
+
+def test_jax_package_unlatches_when_a_constraint_kind_arrives_after_ready():
+    """The reference side of C6, pinned as a standing divergence: the JAX
+    package's Runner answers /readyz 503 after the same sequence."""
+    from gatekeeper_tpu.constraint import (
+        Backend as JBackend,
+        K8sValidationTarget as JTarget,
+        RegoDriver as JRegoDriver,
+    )
+    from gatekeeper_tpu.control import FakeCluster as JFakeCluster
+    from gatekeeper_tpu.control import Runner as JRunner
+
+    cluster = JFakeCluster()
+    cluster.apply(template("K8sRequiredLabels", REQ_LABELS))
+    cluster.apply(constraint("K8sRequiredLabels", "need-owner",
+                             params={"labels": ["owner"]}))
+    cluster.apply(config())
+    cluster.apply(pod("good", labels={"owner": "me"}))
+    runner = JRunner(cluster,
+                     JBackend(JRegoDriver()).new_client(JTarget()), TARGET,
+                     readyz_port=0, audit_interval=3600.0)
+    try:
+        runner.start()
+        assert runner.wait_ready(30), runner.tracker.stats()
+        assert _readyz(runner.readyz_port)[0] == 200
+        _new_kind_after_ready(cluster, runner.tracker)
+        runner.watch_mgr.wait_idle(10)
+        assert _readyz(runner.readyz_port)[0] == 503
+        assert not runner.tracker.satisfied()
+    finally:
+        runner.stop()
+
+
+# ---------------------------------------------------------------------------
+# the agent-action plane through run.py's --agent-review
+
+
+SHELL_ALLOWLIST = """package agentshellallowlist
+allowed_cmd(c) { c == input.parameters.allowed[_] }
+violation[{"msg": msg}] {
+  cmd := input.review.object.spec.arguments.command
+  not allowed_cmd(cmd)
+  msg := sprintf("shell command <%v> is outside the allowlist", [cmd])
+}
+"""
+
+
+def test_agent_review_flag_mounts_the_agent_plane():
+    """`--agent-review` registers AgentActionTarget beside the K8s target;
+    the Runner mounts /v1/agent/review, gossips the `device:agent`
+    breaker over the fleet plane, warms both targets and reports each in
+    /readyz stats.driver.review_path_warm; an agent constraint created
+    after Ready is served and /readyz stays 200 (C6)."""
+    from gatekeeper_tpu.control import GVK as JGVK
+    from gatekeeper_tpu_torch import run as trun
+    from gatekeeper_tpu_torch.agentaction import TARGET_NAME
+    from test_kubecluster import MockApiServer
+
+    agent_tmpl = template("AgentShellAllowlist", SHELL_ALLOWLIST)
+    agent_tmpl["spec"]["targets"][0]["target"] = TARGET_NAME
+    allow = constraint("AgentShellAllowlist", "shell-allowlist",
+                       params={"allowed": ["ls"]},
+                       match={"tools": ["shell.*"]})
+    m = MockApiServer()
+    m.register(JGVK("", "v1", "Secret"), "secrets", True)
+    m.register(JGVK("fleet.gatekeeper.sh", "v1alpha1", "FleetState"),
+               "fleetstates", True)
+    m.register(JGVK("constraints.gatekeeper.sh", "v1beta1",
+                    "AgentShellAllowlist"), "agentshellallowlists", False)
+    m.seed({"apiVersion": "v1", "kind": "Namespace",
+            "metadata": {"name": "default"}})
+    m.seed(template("K8sRequiredLabels", REQ_LABELS))
+    m.seed(constraint("K8sRequiredLabels", "need-owner",
+                      params={"labels": ["owner"]}))
+    args = trun.build_parser().parse_args(
+        ["--kube-url", m.url, "--port", "0", "--health-addr-port", "0",
+         "--audit-interval", "3600", "--log-level", "error",
+         "--fleet-namespace", "default", "--agent-review"])
+    assert trun.build_parser().parse_args([]).agent_review is False
+    cluster, runner = trun.build_runner(args, webhook_tls=False,
+                                        device="cpu")
+    assert set(runner.client.targets) == {TARGET, TARGET_NAME}
+    url = None
+    try:
+        runner.start()
+        assert runner.wait_ready(60), runner.tracker.stats()
+        assert runner.webhook.agent_handler is not None
+        assert runner.webhook.review_targets() == [TARGET, TARGET_NAME]
+        assert "device:agent" in runner.fleet.snapshot()["breakers"]
+        drv = runner.client._driver
+        assert _wait(lambda: drv.review_path_warm(TARGET)
+                     and drv.review_path_warm(TARGET_NAME), 30)
+        k8s_set = drv._cset[TARGET]
+        # an agent template and constraint after Ready
+        m.seed(agent_tmpl)
+        m.seed(allow)
+        assert _wait(lambda: len(drv._constraints(TARGET_NAME)) == 1, 30)
+        assert _wait(lambda: drv.review_path_warm(TARGET_NAME), 30)
+        # the K8s set was neither rebuilt nor cold
+        assert drv._cset[TARGET] is k8s_set and drv.review_path_warm(TARGET)
+        code, body = _readyz(runner.readyz_port)
+        assert code == 200
+        assert body["stats"]["driver"]["review_path_warm"] == {
+            TARGET: True, TARGET_NAME: True}
+        url = f"http://127.0.0.1:{runner.webhook.port}/v1/agent/review"
+
+        def review(command, tool="shell.exec"):
+            body = json.dumps({"request": {
+                "uid": command, "agent": "planner-1", "tool": tool,
+                "arguments": {"command": command}}}).encode()
+            with urllib.request.urlopen(url, data=body, timeout=30) as f:
+                return json.loads(f.read())["response"]
+
+        denied = review("rm")
+        assert denied["allowed"] is False
+        assert "shell-allowlist" in denied["status"]["message"]
+        assert review("ls")["allowed"] is True
+        assert review("rm", tool="net.fetch")["allowed"] is True
+        assert runner.webhook.agent_batcher.batches_dispatched >= 3
+    finally:
+        runner.stop()
+        cluster.stop()
+        m.close()
+
+
+def test_constraint_churn_is_counted_per_target():
+    """TorchDriver counts constraint churn per target: an agent
+    constraint leaves the K8s target's whole set and subset set compiled
+    and its review path warm, and cools the agent target's; a write of
+    the whole constraints tree cools every target."""
+    from gatekeeper_tpu_torch.agentaction import (
+        AgentActionTarget,
+        TARGET_NAME,
+    )
+    from gatekeeper_tpu_torch.constraint.torchdriver import constraint_key
+
+    drv = TorchDriver(device="cpu")
+    client = Backend(drv).new_client(K8sValidationTarget(),
+                                     AgentActionTarget())
+    client.add_template(template("K8sRequiredLabels", REQ_LABELS))
+    for i in range(2):
+        client.add_constraint(constraint("K8sRequiredLabels", f"req-{i}",
+                                         params={"labels": [f"l{i}"]}))
+    agent_tmpl = template("AgentShellAllowlist", SHELL_ALLOWLIST)
+    agent_tmpl["spec"]["targets"][0]["target"] = TARGET_NAME
+    client.add_template(agent_tmpl)
+    client.add_constraint(constraint("AgentShellAllowlist", "allow-ls",
+                                     params={"allowed": ["ls"]}))
+    for t in (TARGET, TARGET_NAME):
+        assert drv.warm_review_path(t, [])
+    k8s_set = drv._constraint_set(TARGET)
+    sub = frozenset(constraint_key(c) for c in k8s_set.constraints[:1])
+    k8s_sub = drv._subset_cset(TARGET, sub)
+    gen0 = drv.constraint_generation()
+
+    client.add_constraint(constraint("AgentShellAllowlist", "allow-cat",
+                                     params={"allowed": ["cat"]}))
+    assert drv.constraint_generation() > gen0
+    assert drv._constraint_set(TARGET) is k8s_set
+    assert drv._subset_cset(TARGET, sub) is k8s_sub
+    assert drv.subset_carryforwards == 0
+    assert drv.review_path_warm(TARGET)
+    assert not drv.review_path_warm(TARGET_NAME)
+    assert len(drv._constraint_set(TARGET_NAME).constraints) == 2
+
+    assert drv.warm_review_path(TARGET_NAME, [])
+    drv.put_data("constraints", drv.storage.get(["constraints"], None))
+    assert not drv.review_path_warm(TARGET)
+    assert not drv.review_path_warm(TARGET_NAME)
+    assert drv._constraint_set(TARGET) is not k8s_set
+    # the subset's content is unchanged: carried forward, not rebuilt
+    assert drv._subset_cset(TARGET, sub) is k8s_sub
+    assert drv.subset_carryforwards == 1

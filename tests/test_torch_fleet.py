@@ -749,6 +749,78 @@ def test_runner_fleet_wiring_and_readyz(tmp_path):
     assert out["peers"] == ["pod-b"] and out["component"]
 
 
+def test_agent_breaker_trip_adopted_by_peer():
+    """Two Runners with the agent target registered mount the agent plane
+    and gossip its `device:agent` breaker: three failed agent batches on
+    A open A's breaker and B's goes HALF_OPEN from the gossip without a
+    failure of its own, on both packages. A's three answers differ as in
+    the validation plane's case above: the JAX package's are its
+    interpreter's denials, the port's the fail policy's."""
+    from test_agentaction import SHELL_REGO, agent_constraint, agent_template
+
+    mods = {"jax": "gatekeeper_tpu.agentaction",
+            "torch": "gatekeeper_tpu_torch.agentaction"}
+
+    def run(p, name):
+        import importlib
+
+        agent = importlib.import_module(mods[name])
+        f = p.faults
+        cluster = p.events.FakeCluster()
+        runners = []
+        try:
+            for rid in ("pod-a", "pod-b"):
+                client = p.constraint.Backend(p.runner_driver()).new_client(
+                    p.constraint.K8sValidationTarget(),
+                    agent.AgentActionTarget())
+                client.add_template(agent_template("AgentShellAllowlist",
+                                                   SHELL_REGO))
+                client.add_constraint(agent_constraint(
+                    "AgentShellAllowlist", "shell-allowlist",
+                    match={"tools": ["shell.*"]},
+                    params={"allowed": ["ls"]}))
+                r = p.control.Runner(
+                    cluster, client, TARGET, operations=("webhook",),
+                    pod_name=rid, webhook_tls=False, readyz_port=0,
+                    audit_interval=3600.0)
+                r.start()
+                runners.append(r)
+            ready = [r.wait_ready(60) for r in runners]
+            a, b = (r.webhook for r in runners)
+            f.FAULTS.arm("webhook.batch_dispatch", mode="error", count=3)
+            answers = [a.agent_handler.handle({
+                "agent": "planner-1", "tool": "shell.exec",
+                "arguments": {"command": "rm"}}) for _ in range(3)]
+            a_state = a.agent_batcher.breaker.state
+            wait_for(lambda: b.agent_batcher.breaker.state == f.HALF_OPEN,
+                     msg="B adopting A's agent trip")
+            return {
+                "ready": ready,
+                "registered": [sorted(r.fleet.snapshot()["breakers"])
+                               for r in runners],
+                "a_after_faults": a_state,
+                "a_failures": a.agent_batcher.batch_failures,
+                "b": (b.agent_batcher.breaker.state,
+                      b.agent_batcher.batch_failures,
+                      b.batcher.breaker.state),
+                "answers": [(x.allowed, x.code) for x in answers],
+            }
+        finally:
+            f.FAULTS.reset()
+            for r in reversed(runners):
+                r.stop()
+
+    out = {name: run(pkg, name) for name, pkg in PKGS.items()}
+    assert out["jax"].pop("answers") == [(False, 403)] * 3
+    assert out["torch"].pop("answers") == [(True, 200)] * 3
+    assert out["torch"] == out["jax"]
+    assert out["torch"]["ready"] == [True, True]
+    assert out["torch"]["registered"] == [
+        ["device:agent", "device:mutation", "device:validation"]] * 2
+    assert out["torch"]["a_after_faults"] == "open"
+    assert out["torch"]["b"] == ("half_open", 0, "closed")
+
+
 # -- a mixed fleet: JAX and port replicas share the wire state ---------------
 
 

@@ -554,6 +554,69 @@ def test_unported_plane_frames_answer_404(client, plane, error):
         server.stop()
 
 
+def _agent_client():
+    from gatekeeper_tpu_torch.agentaction import AgentActionTarget
+    from test_agentaction import SHELL_REGO, agent_constraint, agent_template
+
+    cl = Backend(TorchDriver(device="cpu")).new_client(
+        K8sValidationTarget(), AgentActionTarget())
+    cl.add_template(agent_template("AgentShellAllowlist", SHELL_REGO))
+    cl.add_constraint(agent_constraint(
+        "AgentShellAllowlist", "shell-allowlist",
+        match={"tools": ["shell.*"]}, params={"allowed": ["ls"]}))
+    return cl
+
+
+def _agent_body(i, command):
+    return json.dumps({
+        "apiVersion": "agentaction.gatekeeper.sh/v1",
+        "kind": "AgentActionReview",
+        "request": {"uid": f"call-{i}", "id": f"call-{i}",
+                    "agent": f"planner-{i % 3}", "session": "s-1",
+                    "tool": ["shell.exec", "net.fetch"][i % 2],
+                    "arguments": {"command": command}},
+    }).encode()
+
+
+def test_agent_frames_answered_by_the_agent_plane():
+    """With the agent plane on, a framed 'A' request is answered by
+    webhook.agent_handler with the bytes /v1/agent/review answers over
+    HTTP; with it off, only the agent frame gets the 404."""
+    server = _start_server(_agent_client(), ingest=True, agent_review=True)
+    try:
+        bodies = [_agent_body(i, ["ls", "rm"][i % 3 == 0]) for i in range(12)]
+        with StreamClient("127.0.0.1", server.ingest.port) as c:
+            framed = [c.request(b, PLANE_AGENT, budget_ms=5000, timeout=30.0)
+                      for b in bodies]
+        http_out = []
+        for b in bodies:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/v1/agent/review", data=b)
+            with urllib.request.urlopen(req, timeout=30) as f:
+                http_out.append((f.status, f.read()))
+        assert [(st, json.loads(p)) for st, p in framed] == \
+            [(st, json.loads(p)) for st, p in http_out]
+        allowed = [json.loads(p)["response"]["allowed"] for _, p in framed]
+        assert allowed == [not (i % 3 == 0 and i % 2 == 0)
+                           for i in range(12)]
+        assert server.agent_batcher.requests_batched == 24
+        assert server.batcher.requests_batched == 0
+    finally:
+        server.stop()
+    off = _start_server(_agent_client(), ingest=True)
+    try:
+        with StreamClient("127.0.0.1", off.ingest.port) as c:
+            status, payload = c.request(_agent_body(0, "rm"), PLANE_AGENT,
+                                        timeout=30.0)
+            assert (status, json.loads(payload)) == (
+                404, {"error": "agent review not enabled"})
+            status, _ = c.request(_review_body(0), PLANE_VALIDATE,
+                                  timeout=30.0)
+            assert status == 200
+    finally:
+        off.stop()
+
+
 def test_stream_client_close_releases_server_connection(client):
     server = _start_server(client, ingest=True)
     try:

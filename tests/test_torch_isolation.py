@@ -510,6 +510,85 @@ def test_fleet_plane_runs_with_jax_blocked(tmp_path):
     assert out.stdout.split() == ["True", "1", "half_open"]
 
 
+AGENT_PLANE = (
+    "gatekeeper_tpu_torch.agentaction",
+    "gatekeeper_tpu_torch.agentaction.review",
+    "gatekeeper_tpu_torch.agentaction.target",
+    "gatekeeper_tpu_torch.integrity.canary",
+    "gatekeeper_tpu_torch.ingest.server",
+    "gatekeeper_tpu_torch.run",
+)
+
+
+def test_agent_plane_runs_with_jax_blocked():
+    """The agent-action package imports with jax and the JAX package
+    blocked, and a Runner over the FakeCluster with the agent target
+    registered answers /v1/agent/review with a denial, derives agent
+    canaries, and its shadow oracle process, whose policy now holds an
+    agent template beside the K8s ones, evaluates a sampled admission."""
+    assert set(AGENT_PLANE) <= set(_modules())
+    code = (
+        "import importlib, json, sys, time, urllib.request\n"
+        "for m in ('jax', 'jaxlib', 'gatekeeper_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {AGENT_PLANE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from gatekeeper_tpu_torch.agentaction import AgentActionTarget, TARGET_NAME\n"
+        "from gatekeeper_tpu_torch.constraint import Backend, K8sValidationTarget\n"
+        "from gatekeeper_tpu_torch.constraint.torchdriver import TorchDriver\n"
+        "from gatekeeper_tpu_torch.control import FakeCluster, Runner\n"
+        "from gatekeeper_tpu_torch.integrity.canary import synth_agent_reviews\n"
+        "rego = ('package agentshell\\n'\n"
+        "        'violation[{\"msg\": \"no rm\"}] {\\n'\n"
+        "        '  input.review.object.spec.arguments.command == \"rm\"\\n'\n"
+        "        '}\\n')\n"
+        "tmpl = {'apiVersion': 'templates.gatekeeper.sh/v1beta1',\n"
+        "        'kind': 'ConstraintTemplate', 'metadata': {'name': 'agentshell'},\n"
+        "        'spec': {'crd': {'spec': {'names': {'kind': 'AgentShell'}}},\n"
+        "                 'targets': [{'target': TARGET_NAME, 'rego': rego}]}}\n"
+        "con = {'apiVersion': 'constraints.gatekeeper.sh/v1beta1',\n"
+        "       'kind': 'AgentShell', 'metadata': {'name': 'no-rm'},\n"
+        "       'spec': {'match': {'tools': ['shell.*']}}}\n"
+        "c = FakeCluster()\n"
+        "for t in chip_smoke.template_docs() + [tmpl]:\n"
+        "    c.apply(t)\n"
+        "for k in chip_smoke.constraint_docs(8) + [con]:\n"
+        "    c.apply(k)\n"
+        "client = Backend(TorchDriver(device='cpu')).new_client(\n"
+        "    K8sValidationTarget(), AgentActionTarget())\n"
+        "r = Runner(c, client, chip_smoke.TARGET, webhook_tls=False, audit_interval=3600.0)\n"
+        "try:\n"
+        "    r.start()\n"
+        "    assert r.wait_ready(60)\n"
+        "    url = f'http://127.0.0.1:{r.webhook.port}/v1/agent/review'\n"
+        "    body = json.dumps({'request': {'agent': 'a', 'tool': 'shell.exec',\n"
+        "                                   'arguments': {'command': 'rm'}}})\n"
+        "    out = json.loads(urllib.request.urlopen(\n"
+        "        url, body.encode(), timeout=60).read())['response']\n"
+        "    canaries = synth_agent_reviews([con], k=3)\n"
+        "    plane = r.integrity\n"
+        "    plane.shadow_sample_n = 1\n"
+        "    req = chip_smoke.admission_request(chip_smoke.make_pod(17), 'u')\n"
+        "    obj = client.targets[chip_smoke.TARGET].augment_request(req)\n"
+        "    plane.note_live('t', obj, [])\n"
+        "    deadline = time.monotonic() + 60\n"
+        "    while not plane.shadow_evaluated and time.monotonic() < deadline:\n"
+        "        time.sleep(0.05)\n"
+        "finally:\n"
+        "    r.stop()\n"
+        "print(out['allowed'], len(canaries), plane.shadow_evaluated,\n"
+        "      plane.snapshot()['shadow']['divergences'])\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "3", "1", "0"]
+
+
 def test_entry_and_inventory_joins_run_with_jax_blocked():
     """The harness step (gatekeeper_tpu_torch.entry) and an audit over the
     uniqueness joins run on the CPU in an interpreter where importing jax

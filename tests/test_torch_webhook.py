@@ -615,11 +615,11 @@ UNPORTED = [
 
 
 # the driver planes (partitions, cost attribution, integrity), TLS, the
-# mutation plane and the corpus plane have their arguments since they were
-# ported; those cases check the wiring instead
+# mutation plane, the corpus plane and the agent plane have their
+# arguments since they were ported; those cases check the wiring instead
 PORTED = {"partitions", "partition_devices", "attributor", "replica",
           "integrity", "tls", "cert_dir", "rotator", "mutation_system",
-          "corpus"}
+          "corpus", "agent_review", "agent_mutation_system"}
 TLS_ARGS = {"tls", "cert_dir", "rotator"}
 
 
@@ -667,6 +667,12 @@ def test_unported_plane_raises(client, name, value, tmp_path):
         from gatekeeper_tpu_torch.analysis.corpus import CorpusPlane
 
         kw[name] = CorpusPlane(client)
+    elif name == "agent_mutation_system":
+        from gatekeeper_tpu_torch.agentaction import AgentActionTarget
+        from gatekeeper_tpu_torch.mutation import MutationSystem
+
+        kw.update(agent_review=True, agent_mutation_system=MutationSystem(
+            target_handler=AgentActionTarget(), device="cpu"))
     server = WebhookServer(client, TARGET, **kw)
     server.start()
     try:
@@ -688,6 +694,18 @@ def test_unported_plane_raises(client, name, value, tmp_path):
             assert server.mutation_handler.batcher is server.mutate_batcher
         elif name == "corpus":
             assert part.corpus is kw[name]
+        elif name in ("agent_review", "agent_mutation_system"):
+            from gatekeeper_tpu_torch.agentaction import TARGET_NAME
+
+            assert server.agent_batcher.target == TARGET_NAME
+            assert server.agent_handler.batcher is server.agent_batcher
+            assert set(server.sched_snapshot()) >= {"validation", "agent"}
+            if name == "agent_mutation_system":
+                assert server.agent_mutate_batcher.system is kw[name]
+                assert server.agent_handler.mutate_batcher is \
+                    server.agent_mutate_batcher
+            else:
+                assert server.agent_mutate_batcher is None
     finally:
         server.stop()
 
