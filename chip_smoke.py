@@ -9,7 +9,20 @@ Phases, one line each on stdout, in this order:
   build    nvcc builds every kernel of the path from csrc/ into
            build/gatekeeper_tpu_torch/ (one nvcc per source, in parallel),
            then gcc builds the C token flattener (native/flatten.c) and g++
-           the webhook's native HTTP front (native/bridge_frontend.cpp);
+           the webhook's native HTTP front (native/bridge_frontend.cpp),
+           all into the compile-artifact store's lib dir
+           (build/gatekeeper_tpu_torch/store/), which attests them;
+  store    the libraries build made, attested into a fresh store root
+           under build/ beside four forged artifacts (another machine's
+           fingerprint, a payload whose sha256 differs from its
+           attestation, a schema-0 attestation, a bare file at the root)
+           under real libraries' names; a child process with that root,
+           an empty load directory and no nvcc on its PATH adopts and
+           launches K1-K7 once each from the adopted files against their
+           plain versions, bit for bit, starts no nvcc, maps every
+           libgk_ library from the store's lib dir with the attested
+           content, and counts each forgery under its reason (the cold
+           build_all seconds beside the adopt seconds);
   native   the C token flattener against the Python encoder: equal token
            tables and vocab contents and order on 1,000 pods, 1,000
            make_mixed objects and one review batch of 256 against an
@@ -17,11 +30,12 @@ Phases, one line each on stdout, in this order:
            defaults 2,000 and 100,000; cut for time); the encode seconds
            of both on that corpus;
   parity   250 pods x 50 constraints on TorchDriver("cuda") (the
-           function's default 1,000; cut for time): 4 review batches of 64
-           identical to the port's own interpreter driver (RegoDriver);
+           function's default 1,000; cut for time): 2 review batches of 64
+           (the default 4; cut for time) identical to the port's own interpreter driver (RegoDriver);
   subset   partition-scoped review over the same clients
            (Client.review_many_subset, the constraints split into 3
-           subsets): 4 batches of 64, each subset's results equal to the
+           subsets): 2 batches of 64 (the default 4; cut for time), each
+           subset's results equal to the
            interpreter driver's, merged in constraint order equal to the
            whole review_many; K1-K4 must launch;
   audit_parity  the audit controller on the same clients, one
@@ -34,14 +48,15 @@ Phases, one line each on stdout, in this order:
            FakeCluster holding the churned state, reports equal;
   webhook_parity  two WebhookServers on 127.0.0.1 over the parity clients
            (a dryrun and a warn constraint added), one over TorchDriver, one
-           over the interpreter driver: 256 AdmissionReviews (violating and
+           over the interpreter driver: 128 AdmissionReviews (the
+           function's default 512; cut for time; violating and
            compliant pods, an excluded namespace, DELETEs with an oldObject,
            Gatekeeper's service account, /v1/admitlabel requests) from 64
            threads over HTTP get equal response bodies by uid; every batch
            takes the fused route and K1-K4 launch;
   ingest_parity  the same two clients behind WebhookServer(ingest=True,
            sched_policy="deadline") with a DecisionLog and an SloEngine:
-           the 256 AdmissionReviews as framed requests with FLAG_DEADLINE
+           the 128 AdmissionReviews as framed requests with FLAG_DEADLINE
            budgets over 8 StreamClient connections from 64 threads, plus 16
            bodies with duplicate keys (the decode fallback). Bodies equal
            by uid across the two drivers and, on TorchDriver, to the same
@@ -49,7 +64,7 @@ Phases, one line each on stdout, in this order:
            zerocopy/fallback/legacy decode counts exact; every batch fused
            and K1-K4 launch;
   bridge_parity  a BridgeStack (the C++ front, deadline_ms 10,000) over the
-           TorchDriver parity client takes the 256 requests over HTTP from
+           TorchDriver parity client takes the 128 requests over HTTP from
            64 threads: bodies equal to the interpreter's by uid, no
            fail-open answer, every batch fused, K1-K4 launch;
   full     the north-star deployment (100,000 pods x 500 constraints): one
@@ -114,7 +129,7 @@ Phases, one line each on stdout, in this order:
            sweep 2 must take the vocab-delta upload. Every kernel (K1-K6)
            must launch over the two sweeps, K5 in sweep 2; a sample of rows
            is held against the interpreter;
-  inventory_parity  500 mixed-GVK rows (make_mixed: pods, Services,
+  inventory_parity  250 mixed-GVK rows (make_mixed: pods, Services,
            Ingresses, Namespaces) x 50 constraints plus the two uniqueness
            joins (UNIQUE_INGRESS_HOST_REGO, UNIQUE_SERVICE_SELECTOR_REGO):
            whole audit() and review_many() result lists (1 review batch
@@ -158,7 +173,8 @@ Phases, one line each on stdout, in this order:
            against the interpreter), with the oracle's sampled, evaluated,
            dropped and stale counts, its evaluation seconds, the batches'
            dispatch seconds with and without an evaluation beside them
-           and the full collections during the load;
+           and the full collections during the load; the Runner's
+           /debug/flightrecords holds no record after the load;
   mutation the same Runner serving /v1/mutate: 48 mutators
            (mutation_docs: 16 Assign, 16 AssignMetadata, 16 ModifySet,
            half with a labelSelector, a quarter with namespaces or
@@ -205,9 +221,11 @@ Phases, one line each on stdout, in this order:
   fleet    two replicas on the card over one stand-in: A, the Runner of
            the three phases above, and B, python -m
            gatekeeper_tpu_torch.run as a child (its own CUDA context) at
-           the same config, --operation webhook, --agent-review, the
-           process defaults otherwise and GATEKEEPER_TPU_FAULTS arming
-           driver.device_dispatch=error past 120 dispatches for the
+           the same config, --operation webhook without the agent target
+           (its trackers for the agent phase's constraint kinds report
+           their expectations cancelled, C8), the process defaults
+           otherwise, GATEKEEPER_TPU_FLIGHT_DIR and GATEKEEPER_TPU_FAULTS
+           arming driver.device_dispatch=error past 120 dispatches for the
            breaker's threshold. B boots while A idles; one Secret and one
            CA verified on both, cert_generation equal; A rotates and B,
            the same process, presents the new certificate; 256 requests
@@ -217,7 +235,9 @@ Phases, one line each on stdout, in this order:
            fleet-wide over the distinct keys printed; 64 answers against
            the interpreter); B's armed fault trips its breaker, A's adopts
            it (HALF_OPEN), A's next batch is one probe that closes it, no
-           answer from A fails or fails open; each /readyz answers 200
+           answer from A fails or fails open; B's flight recorder keeps
+           exactly one coalesced breaker_open record (trace tail, armed
+           fault points, cost table) on /debug/flightrecords and on disk; each /readyz answers 200
            (A's after the extdata and agent kinds came after its Ready,
            C6) and lists the other as its peer with no publish failure;
            K1-K4 launch for A,
@@ -999,12 +1019,17 @@ def _nbytes(*ts) -> int:
 # -- phases -------------------------------------------------------------------
 
 
-def phase_card():
-    out = subprocess.run(
+def phase_card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+
+
+def phase_card():
+    out = phase_card_line()
     print(out, flush=True)
     return out
 
@@ -1025,11 +1050,200 @@ def phase_build():
     native.load_flatten_native()  # gcc: the C token flattener
     t2 = time.perf_counter()
     native.build_frontend()  # g++: the webhook's native HTTP front
+    store = build.process_store()
     print(json.dumps({"phase": "build", "seconds": dt,
                       "built": sorted(logs),
                       "native_seconds": t2 - t1,
-                      "frontend_seconds": time.perf_counter() - t2}),
+                      "frontend_seconds": time.perf_counter() - t2,
+                      "store": store.stats() if store is not None else None}),
           flush=True)
+    return dt
+
+
+# -- store: the compile-artifact store gates every kernel library -----------
+
+# K1-K7's libraries (kernels/build.py sources) by the wrapper each serves
+STORE_KERNELS = {os.path.basename(src)[: -len(".cu")]: name
+                 for name, (src, _) in KERNELS.items()}
+
+# the child of phase_store: adopts from the store at
+# GATEKEEPER_TPU_COMPILE_CACHE_DIR with no nvcc on its PATH, then launches
+# each kernel once against its plain version
+STORE_CHILD = r"""
+import json, os, shutil, subprocess, sys, time
+sys.path.insert(0, os.environ["SMOKE_ROOT"])
+starts = []
+_popen = subprocess.Popen
+
+
+class Guard(_popen):
+    def __init__(self, args, *a, **kw):
+        argv = [args] if isinstance(args, (str, bytes)) else list(args)
+        if argv and os.path.basename(str(argv[0])) == "nvcc":
+            starts.append(argv)
+            raise RuntimeError("store child: nvcc started")
+        super().__init__(args, *a, **kw)
+
+
+subprocess.Popen = Guard
+import torch
+import chip_smoke as c
+from gatekeeper_tpu_torch.kernels import build, ops
+
+t0 = time.perf_counter()
+store = build.process_store()
+adopt_s = time.perf_counter() - t0
+first = {}
+for name, args, kw in c._random_variants("cuda"):
+    first.setdefault(name, (args, kw))
+ops.reset_launches()
+checked = {}
+for name in c.STORE_KERNELS.values():
+    args, kw = first[name]
+    got = c._flat(getattr(ops, name)(*c._fresh(name, args), **kw))
+    want = c._flat(c._plain(name)(*c._fresh(name, args), **kw))
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"store child: {name} differs from its plain version")
+    checked[name] = list(got.shape)
+maps = open("/proc/self/maps").read().split()
+loaded = sorted({p for p in maps if "libgk_" in p})
+print(json.dumps({
+    "adopt_s": adopt_s, "stats": store.stats(), "table": store.table(),
+    "libs": {k: v[1] for k, v in build._libs.items()},
+    "loaded": loaded, "launches": dict(ops.LAUNCHES), "checked": checked,
+    "nvcc_starts": len(starts), "nvcc_on_path": shutil.which("nvcc"),
+}))
+"""
+
+
+def _forge(art: str, payload: bytes, meta: dict) -> str:
+    """One forged artifact in the store layout: payload and attestation
+    under the sha256 the attestation claims."""
+    import hashlib
+
+    sha = meta.get("sha256") or hashlib.sha256(payload).hexdigest()
+    with open(os.path.join(art, f"{sha}.bin"), "wb") as f:
+        f.write(payload)
+    with open(os.path.join(art, f"{sha}.meta.json"), "w") as f:
+        json.dump(dict({"sha256": sha}, **meta), f)
+    return sha
+
+
+def phase_store(cold_build_s: float):
+    """The compile-artifact store on the card. The libraries `build` made
+    are attested into a fresh store root under build/; four forged
+    artifacts join them, one per reject reason (another machine's
+    fingerprint, a payload whose sha256 differs from its attestation, a
+    schema-0 attestation, a bare file at the root) under the file names
+    of real kernel libraries. A child process with that root, an empty
+    load directory and no nvcc on its PATH adopts, then launches K1-K7
+    once each from the adopted files against their plain versions, bit
+    for bit: it must start no nvcc, load every libgk_ library from the
+    store's lib dir with the attested content, and count each forgery
+    under its reason. -> the child's launches."""
+    import hashlib
+    import shutil
+
+    from gatekeeper_tpu_torch.compile import ProgramStore
+    from gatekeeper_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    main_store = build.process_store()
+    if main_store is None:
+        raise AssertionError("store: the process has no store (is "
+                             "GATEKEEPER_TPU_NO_COMPILE_CACHE set?)")
+    root = str(build.BUILD_DIR / f"store-smoke-{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    fresh = ProgramStore(root)
+    if fresh.fp_digest != main_store.fp_digest:
+        raise AssertionError("store: two fingerprints on one machine")
+    names = {src: build._filename(src) for src in STORE_KERNELS}
+    payloads = {}
+    for src, filename in names.items():
+        path = main_store.lookup(filename)
+        if path is None:
+            raise AssertionError(f"store: build left {filename} unattested")
+        shutil.copy(path, os.path.join(fresh.lib_dir, filename))
+        with open(path, "rb") as f:
+            payloads[src] = f.read()
+    t_a = time.perf_counter()
+    attested = fresh.attest()
+    attest_s = time.perf_counter() - t_a
+    if attested != len(names):
+        raise AssertionError(f"store: attested {attested} of {len(names)}")
+    shutil.rmtree(os.path.join(root, "by-fingerprint"))  # empty load dir
+    art = fresh.artifacts_dir
+    forged = {
+        "fingerprint_mismatch": _forge(art, payloads["match"] + b"\0", {
+            "schema": 1, "filename": names["match"],
+            "fingerprint": "f" * 64}),
+        "corrupt": _forge(art, b"forged slab library", {
+            "schema": 1, "filename": names["slab"],
+            "sha256": hashlib.sha256(payloads["slab"]).hexdigest()[::-1],
+            "fingerprint": fresh.fp_digest}),
+        "schema": _forge(art, payloads["group"] + b"\0", {
+            "schema": 0, "filename": names["group"],
+            "fingerprint": fresh.fp_digest}),
+    }
+    with open(os.path.join(root, names["need"]), "wb") as f:
+        f.write(b"a legacy library of unknown origin")
+    path_dirs = [d for d in os.environ.get("PATH", "").split(os.pathsep)
+                 if d and not os.path.exists(os.path.join(d, "nvcc"))]
+    env = dict(os.environ, GATEKEEPER_TPU_COMPILE_CACHE_DIR=root,
+               PATH=os.pathsep.join(path_dirs), SMOKE_ROOT=ROOT,
+               PYTHONPATH=ROOT)
+    env.pop("GATEKEEPER_TPU_NO_COMPILE_CACHE", None)
+    t_c = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", STORE_CHILD], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    child_s = time.perf_counter() - t_c
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise AssertionError(f"store: the child exited {proc.returncode}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    stats, lib_dir = doc["stats"], doc["stats"]["lib_dir"]
+    want_rejected = {r: 1 for r in ("fingerprint_mismatch", "corrupt",
+                                    "schema", "unattested")}
+    problems = []
+    if doc["nvcc_starts"] or doc["nvcc_on_path"]:
+        problems.append("nvcc started or on the PATH")
+    if stats["rejected"] != want_rejected:
+        problems.append(f"rejected {stats['rejected']}")
+    if stats["hits"] != len(names) or stats["misses"] or stats["saves"]:
+        problems.append(f"hits/misses/saves {stats}")
+    for src, filename in names.items():
+        loaded = doc["libs"].get(src)
+        if loaded != os.path.join(lib_dir, filename):
+            problems.append(f"{src} loaded from {loaded}")
+            continue
+        with open(loaded, "rb") as f:
+            if f.read() != payloads[src]:
+                problems.append(f"{src}: the loaded file is not the attested one")
+    if any(not p.startswith(lib_dir + os.sep) for p in doc["loaded"]) or \
+            len(doc["loaded"]) != len(names):
+        problems.append(f"mapped libraries {doc['loaded']}")
+    if any(n != 1 for n in doc["launches"].values()):
+        problems.append(f"launches {doc['launches']}")
+    rows = {r["reason"] for r in doc["table"] if r["status"] == "rejected"}
+    if rows != set(want_rejected) or any(
+            sha[:12] == r["artifact"] and r["status"] == "adopted"
+            for sha in forged.values() for r in doc["table"]):
+        problems.append(f"table {doc['table']}")
+    out = {"phase": "store", "cold_build_all_s": cold_build_s,
+           "attest_s": attest_s, "adopt_s": doc["adopt_s"],
+           "child_s": child_s, "nvcc_starts": doc["nvcc_starts"],
+           "adopted": stats["hits"], "rejected": stats["rejected"],
+           "fingerprint": stats["fingerprint_components"],
+           "launches": doc["launches"], "checked": doc["checked"],
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(out), flush=True)
+    print(phase_card_line(), flush=True)
+    if problems:
+        raise AssertionError(f"store: {problems}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {w: doc["launches"][w] for w in STORE_KERNELS.values()}
 
 
 def phase_parity(device: str, n_pods: int = 1000, n_constraints: int = 50,
@@ -4707,6 +4921,17 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
                     "the interpreter")
         sample_s = time.perf_counter() - t_s
         launches = dict(ops.LAUNCHES)
+        # the flight recorder: a clean load trips nothing (no shed
+        # burst, no SLO breach, no breaker)
+        runner.recorder.flush()
+        time.sleep(runner.recorder.debounce_s + 0.1)
+        status, text = _http_get(
+            f"http://127.0.0.1:{runner.readyz_port}/debug/flightrecords")
+        flight = json.loads(text) if status == 200 else None
+        if flight is None or flight["records"] or flight["suppressed"]:
+            raise AssertionError(
+                f"runner: /debug/flightrecords after a clean load: "
+                f"{status} {text[:2000]}")
     except BaseException:
         _stop_runner(state)
         _print_tail(os.path.join(work, "runner.log"))
@@ -4725,6 +4950,7 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
         "https": dict(https, sample_checked=len(range(0, n_requests, step)),
                       sample_seconds=sample_s),
         "churn": churn, "launches": launches,
+        "flightrecords": {k: v for k, v in flight.items() if k != "records"},
         "apiserver_requests": api.requests(),
         "seconds": time.perf_counter() - t0,
     }, default=float), flush=True)
@@ -5989,8 +6215,15 @@ def phase_agent(rec, state, n_http: int = 2048, n_framed: int = 512,
             got = {k: n[k] for k in want}
             if got != want:
                 wrong[p] = {"launched": got, "expected": want}
+        # the agent policy's vocabulary reaches the device in a delta
+        # flush (K5) at the first dispatch after it compiled: the warm
+        # thread's staging or an /v1/admit batch beside the new policy,
+        # or else an agent load's, as the host's timing falls
+        flushed = launches["agent"]["flush_deltas"] + \
+            out["policy"]["launches"]["flush_deltas"]
         missing = [k for k in PATH_KERNELS["agent"]
-                   if launches["agent"][k] <= 0]
+                   if (flushed if k == "flush_deltas"
+                       else launches["agent"][k]) <= 0]
         if wrong or missing or k1_row is None:
             raise AssertionError(
                 f"agent: the agent loads' launches: {wrong}; never "
@@ -6132,9 +6365,11 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
     provider; replica B is `python -m gatekeeper_tpu_torch.run` as a child
     process (a CUDA context of its own, like a second pod) on the same
     stand-in at the same config (500 constraints, the synced pods),
-    --operation webhook and the process defaults otherwise (the
-    Secret-backed cert store, the fleet plane, the integrity plane), with
-    GATEKEEPER_TPU_FAULTS arming driver.device_dispatch=error past
+    --operation webhook without the agent target (the agent templates
+    fail to ingest there and cancel their kinds' readiness expectations,
+    C8) and the process defaults otherwise (the Secret-backed cert store,
+    the fleet plane, the integrity plane), with GATEKEEPER_TPU_FLIGHT_DIR
+    and GATEKEEPER_TPU_FAULTS arming driver.device_dispatch=error past
     `fault_after` dispatches for the breaker's failure threshold. B boots
     while A idles, to Ready and then to a warm review path (its warm
     thread compiles the policy after Ready, /readyz stats.driver
@@ -6152,6 +6387,8 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
     device:validation breaker opens (B answers the fail policy), A's
     breaker adopts it (HALF_OPEN), A's next batch is a single probe that
     succeeds and closes it, and no answer from A fails or fails open;
+    B's flight recorder keeps exactly one breaker_open record
+    (_fleet_flight_record), still the only one on disk when B ends;
     (5) each /readyz lists the other replica as its peer, component/fleet
     ready, no publish failure; (6) K1-K4 launched for A's batches, B's log
     names the device, B's /metrics counted fused batches and no degraded
@@ -6201,8 +6438,10 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
            "--prometheus-port", str(ports["metrics"]),
            "--cert-dir", os.path.join(work, "certs"),
            "--operation", "webhook", "--pod-name", FLEET_POD,
-           "--drain-grace", str(drain_grace), "--agent-review"]
-    env = dict(os.environ, PYTHONPATH=ROOT, GATEKEEPER_TPU_FAULTS=faults)
+           "--drain-grace", str(drain_grace)]
+    flight_dir = os.path.join(work, "flight")
+    env = dict(os.environ, PYTHONPATH=ROOT, GATEKEEPER_TPU_FAULTS=faults,
+               GATEKEEPER_TPU_FLIGHT_DIR=flight_dir)
     log_path = os.path.join(work, "b.log")
     out = {"phase": "fleet", "a": runner.pod_name, "b": FLEET_POD,
            "b_faults": faults, "publish_cap": cap}
@@ -6220,6 +6459,17 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
         if child.poll() is not None:
             raise AssertionError(f"fleet: replica B exited {child.returncode}")
         out["b_boot_to_ready_s"] = time.perf_counter() - t_boot
+        # B serves no agent target: the agent templates the agent phase
+        # created fail to ingest there, and their constraint kinds'
+        # expectations are cancelled (C8), so B became Ready
+        trackers = _readyz(ports["health"])[1]["stats"]
+        out["b_agent_trackers"] = {
+            kind: trackers.get(f"constraint/{kind}")
+            for kind, _ in AGENT_TEMPLATES}
+        if any((t or {}).get("expected") != 0 or not (t or {}).get(
+                "cancelled") for t in out["b_agent_trackers"].values()):
+            raise AssertionError(
+                f"fleet: B's agent kinds: {out['b_agent_trackers']}")
         _step("fleet", "B ready", t0)
         # Ready does not wait for the policy compile (the reference's
         # semantics); B's warm thread compiles it, and the loads start
@@ -6341,16 +6591,18 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
             raise AssertionError(f"fleet: B before the fault: {pre}")
         conn = http.client.HTTPSConnection("127.0.0.1", ports["webhook"],
                                            timeout=60, context=new_ctx)
-        failed, sent, t_trip = 0, 0, None
+        failed, sent, t_trip, trip_lat = 0, 0, None, []
         try:
             while sent < fault_after + 4 * threshold and t_trip is None:
                 req = admission_request(
                     make_pod(8_000_000 + sent, name=f"fleet-trip-{sent}"),
                     f"fleet-trip-{sent}")
+                t_q = time.perf_counter()
                 conn.request("POST", "/v1/admit", _envelope(req),
                              {"Content-Type": "application/json"})
                 resp = conn.getresponse()
                 body = json.loads(resp.read())
+                trip_lat.append(time.perf_counter() - t_q)
                 sent += 1
                 if _unavailable(body):
                     failed += 1
@@ -6372,7 +6624,10 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
         trip = dict(pre, sent_to_trip=sent, b_failed=failed,
                     b_breaker=b_state["state"], trip_to_adoption_s=adopt_s,
                     a_breaker_after_probe=breaker.state, probe_s=lat[0],
-                    a_adoptions=plane.breaker_adoptions)
+                    a_adoptions=plane.breaker_adoptions,
+                    b_trip_p50_s=_quantile(trip_lat, 0.5),
+                    b_trip_p99_s=_quantile(trip_lat, 0.99),
+                    b_trip_max_s=max(trip_lat))
         out["breaker"] = trip
         if b_state["state"] != OPEN or breaker.state != CLOSED or \
                 plane.breaker_adoptions < 1 or \
@@ -6384,6 +6639,7 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
             "breaker"]["state"] != OPEN, 40, "B's breaker to leave OPEN")
         trip["b_left_open_s"] = time.perf_counter() - t_r
         _step("fleet", "breaker gossip", t0)
+        out["flight"] = _fleet_flight_record(ports, flight_dir, t_trip)
 
         # (5) /readyz on both
         (st_a, doc_a), (st_b, doc_b) = (_readyz(runner.readyz_port),
@@ -6411,6 +6667,10 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
         out["b_sigterm"] = {"exit": rc, "seconds": time.perf_counter() - t_term}
         if rc != 0:
             raise AssertionError(f"fleet: SIGTERM gave B exit {rc}")
+        # still one record: nothing after the trip captured again
+        on_disk = sorted(os.listdir(flight_dir))
+        if on_disk != [f"flightrecord-{out['flight']['id']}.json"]:
+            raise AssertionError(f"fleet: B's flight records: {on_disk}")
     except BaseException:
         _print_tail(log_path, 40)
         raise
@@ -6432,6 +6692,64 @@ def phase_fleet(rec, state, n_first: int = 256, n_mixed: int = 1024,
                seconds=time.perf_counter() - t0)
     print(json.dumps(out, default=float), flush=True)
     return launches
+
+
+def _fleet_flight_record(ports, flight_dir, t_trip):
+    """Replica B's breaker trip as its flight recorder kept it: exactly one
+    coalesced breaker_open record on /debug/flightrecords, holding the
+    trace tail, the fault registry's armed points and the cost table,
+    and the same record on disk. -> its figures: the seconds from the
+    trigger to the capture's start (the recorder's debounce) and to the
+    file on disk (its mtime, at the file system's clock granularity),
+    and from the trip to the record on /debug/flightrecords (polled)."""
+    url = f"http://127.0.0.1:{ports['health']}/debug/flightrecords"
+
+    def doc():
+        status, text = _http_get(url)
+        return json.loads(text) if status == 200 else {}
+
+    _wait_for(lambda: doc().get("captured", 0) >= 1, 30,
+              "replica B's flight record", step=0.05)
+    first_seen = time.perf_counter() - t_trip
+    time.sleep(1.0)  # a second trigger would have coalesced or landed
+    fr = doc()
+    records = fr.get("records") or []
+    if len(records) != 1 or fr.get("captured") != 1:
+        raise AssertionError(f"fleet: B's flight records: {fr}")
+    rec = records[0]
+    triggers = rec["triggers"]
+    ctx = triggers[0]["context"]
+    path = os.path.join(flight_dir, f"flightrecord-{rec['id']}.json")
+    problems = []
+    if rec["trigger"] != "breaker_open" or ctx.get("to_state") != "open":
+        problems.append(f"trigger {rec['trigger']} {ctx}")
+    if not rec.get("trace_tail"):
+        problems.append("no trace tail")
+    if "driver.device_dispatch" not in (rec.get("faults") or {}):
+        problems.append(f"faults {rec.get('faults')}")
+    if "costs" not in rec:
+        problems.append("no cost table")
+    if (rec.get("state") or {}).get("webhook", {}).get(
+            "breaker", {}).get("state") is None:
+        problems.append(f"state {sorted(rec.get('state') or {})}")
+    if not os.path.exists(path):
+        problems.append(f"{path} missing")
+    if problems:
+        raise AssertionError(f"fleet: B's flight record: {problems}")
+    with open(path) as f:
+        if json.load(f)["id"] != rec["id"]:
+            raise AssertionError("fleet: B's record on disk differs")
+    return {"id": rec["id"], "trigger": rec["trigger"],
+            "triggers": [t["reason"] for t in triggers],
+            "breaker": ctx.get("breaker"),
+            "trigger_to_capture_s": rec["ts"] - triggers[0]["ts"],
+            "trigger_to_on_disk_s": os.path.getmtime(path)
+            - triggers[0]["ts"],
+            "seen_after_trip_s": first_seen,
+            "trace_tail": len(rec["trace_tail"]),
+            "faults": sorted(rec["faults"]),
+            "cost_rows": len((rec.get("costs") or {}).get("rows") or []),
+            "state": sorted(rec["state"]), "bytes": os.path.getsize(path)}
 
 
 def _free_port() -> int:
@@ -7145,30 +7463,33 @@ def main() -> int:
     # the runner phase's apiserver stand-in seeds its 100,000 pods in a
     # process of its own while the phases before it run
     runner_api = ApiProcess(100_000, 500, catalogue=True)
-    phase_build()
+    cold_build_s = phase_build()
+    launches_store = phase_store(cold_build_s)
+    mark("store")
     phase_native(n_check=1000, n_corpus=25_000)
     mark("native")
-    port, ref, drv = phase_parity("cuda", n_pods=250)
-    launches_subset = phase_subset(port, ref, drv)
+    port, ref, drv = phase_parity("cuda", n_pods=250, n_batches=2)
+    launches_subset = phase_subset(port, ref, drv, n_batches=2)
     mark("subset")
     # the depth of native (1,000 checked objects and a 25,000-pod corpus,
-    # not 2,000 and 100,000), the parity clients (250 pods, not 1,000),
-    # the three parity phases over HTTP (256 requests, not 512),
+    # not 2,000 and 100,000), the parity clients (250 pods and 2 review
+    # batches, not 1,000 and 4), the three parity phases over HTTP (128
+    # requests, not 512),
     # audit_parity and audit_churn (one join constraint each, not 4), full
     # (2 review batches, not 8), webhook and ingest (half the requests, 32
     # sampled answers, not 64), partitions (half the requests),
-    # inventory_parity (500 rows and 1 review batch, not
-    # 2,000 and 2), inventory (2 review batches, not 8), runner (1,024
+    # inventory_parity (250 rows and 1 review batch, not
+    # 2,000 and 4), inventory (2 review batches, not 8), runner (1,024
     # requests, not 4,096) and extdata (loads of 512, not 1,024) is cut,
     # widths and callers kept, so that the fleet phase fits the smoke's
     # time limit
     phase_audit_parity(port, ref, drv, n_pods=250, n_join=1)
     mark("audit_parity")
     launches_wh_parity, fifo_fields = phase_webhook_parity(port, ref, drv,
-                                                           n=256)
+                                                           n=128)
     launches_ing_parity, interp_bodies = phase_ingest_parity(
-        port, ref, drv, fifo_fields, n=256)
-    launches_br_parity = phase_bridge_parity(port, drv, interp_bodies, n=256)
+        port, ref, drv, fifo_fields, n=128)
+    launches_br_parity = phase_bridge_parity(port, drv, interp_bodies, n=128)
     mark("bridge_parity")
     del port, ref, drv
     rec, launches_full, client, drv, full_counts = phase_full("cuda",
@@ -7192,7 +7513,7 @@ def main() -> int:
     mark("audit_churn")
     del client, drv  # the pod-only cluster; the mixed one comes next
     torch.cuda.empty_cache()
-    phase_inventory_parity("cuda", n_rows=500, n_batches=1)
+    phase_inventory_parity("cuda", n_rows=250, n_batches=1)
     mark("inventory_parity")
     client, drv, pairs, launches_inv = phase_inventory("cuda", rec,
                                                        n_batches=2)
@@ -7232,8 +7553,11 @@ def main() -> int:
               "runner": launches_runner, "mutation": launches_mut,
               "extdata": launches_ext, **launches_agent,
               "fleet": launches_fleet},
-        extra={"match_matrix": {"mutation_screen": k1_mutation,
-                                "agent_review": k1_agent}},
+        extra={name: dict(
+            {"store_launches": launches_store[name]},
+            **({"mutation_screen": k1_mutation, "agent_review": k1_agent}
+               if name == "match_matrix" else {}))
+            for name in KERNELS},
     )
     mark("kernels")
     phase_variants()

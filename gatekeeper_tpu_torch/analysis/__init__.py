@@ -1,7 +1,6 @@
 # Copied from gatekeeper_tpu/analysis/__init__.py; only these edits differ.
-# Edit: the docstring names what this package leaves out: the offline CLI
-# (`cli.py`, `__main__.py`), the canary gate (`canarygate.py`) and the JAX
-# lint (`jitlint.py`).
+# Edit: the docstring names the port's CLI and what this package leaves
+# out: the JAX jit lint (`jitlint.py`).
 """Static vectorizability analysis for ConstraintTemplate Rego.
 
 Public surface:
@@ -11,6 +10,10 @@ Public surface:
   * `VectorizabilityReport` / `Diagnostic` — the structured outcome:
     a verdict from the lattice `VECTORIZED | PARTIAL_ROWS |
     INTERPRETER | INVALID` plus stable `GK-Vxxx` diagnostics.
+  * `python -m gatekeeper_tpu_torch.analysis <paths...>` — offline
+    template linting + CI baseline enforcement (see `cli.py`), with the
+    mutator, provider, corpus, IR and canary-derivability planes
+    (`canarygate.py`) and the one-shot `all` gate.
 
 The analyzer is consulted by `constraint/client.py` at template
 admission (INVALID templates are rejected with the diagnostics) and by
@@ -26,8 +29,7 @@ The corpus plane lives in `corpus.py`: whole-corpus diagnostics over
 templates, constraints, mutators and providers, and the provably-dead
 constraint keys the partition planner prunes (`CorpusPlane`).
 
-Not part of this package: the offline CLI (`cli.py`), the canary gate
-(`canarygate.py`) and the JAX jit lint (`jitlint.py`).
+Not part of this package: the JAX jit lint (`jitlint.py`).
 """
 
 from .analyzer import Analyzer, analyze_modules, analyze_template  # noqa: F401

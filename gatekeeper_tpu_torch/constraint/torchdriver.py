@@ -62,8 +62,13 @@ prefetches its deduped keys (one outbound fetch per provider); the
 feature's per-row bits are computed from the live response cache on every
 dispatch and staged volatile, never cached on the corpus, so a TTL expiry
 routes the rows back to the interpreter's re-check. Not carried over from
-TpuDriver (see ROADMAP.md): the program store and the per-query
-pair/render/phase metric series. The warm path is the reference's minus
+TpuDriver (see ROADMAP.md): the per-query pair/render/phase metric series.
+The compile-artifact store (`program_store`, compile/) is the process's
+(kernels/build.py `process_store`) on a CUDA driver and None on the CPU,
+as the reference's is None without JAX: it gates the kernel and native
+libraries, its fingerprint enters each subset signature, the integrity
+plane keeps its golden sets beside it, and `attest()` runs after a warm
+and after a subset swap, where the reference's does. The warm path is the reference's minus
 the interpreter: `warm_review_path` compiles and stages the policy, and
 encodes the audit corpus a policy with row features overlays, ahead of
 the first batch (a batch that comes first waits for it on the serving
@@ -114,6 +119,7 @@ from ..flatten.encoder import (
 )
 from ..faults import FaultError, device_point, fire
 from ..flatten.vocab import OverlayVocab, Vocab
+from ..kernels.build import process_store
 from ..parallel.fused import FusedKernel, decode_need
 from ..rego import ast as A
 from ..rego.interp import RegoError, Undefined, _call_function
@@ -298,6 +304,11 @@ class TorchDriver(RegoDriver):
         self._sig_cache: Dict[Tuple[str, frozenset], Tuple[int, str]] = {}
         self._swap_gen = 0
         self.program_compiles = 0  # compile_program invocations
+        # compile.ProgramStore: the process's store on the card (None when
+        # GATEKEEPER_TPU_NO_COMPILE_CACHE=1), None on the CPU
+        self.program_store = (
+            process_store() if dev.type == "cuda" else None
+        )
         self.subset_swaps = 0  # shadow sets swapped live
         self.subset_carryforwards = 0  # generation bumps a signature served
         # IR feature liveness (analysis/ir.py): review batches encode under
@@ -679,6 +690,8 @@ class TorchDriver(RegoDriver):
         )
         self.program_compiles += 1
         self._count("program_store_compiles_total", kind=kind)
+        if self.program_store is not None:
+            self.program_store.note_miss()
         try:
             prog = compile_program(env, mods, params)
         except CompileUnsupported as e:
@@ -755,6 +768,10 @@ class TorchDriver(RegoDriver):
                         target, cs, reviews, self._ns_cache(target)
                     )
             self._review_warm[target] = gen
+        # content-address and attest whatever the warm built into the
+        # store's lib dir, so identical machines can adopt it
+        if self.program_store is not None:
+            self.program_store.attest()
         return True
 
     def review_path_warm(self, target: str) -> bool:
@@ -801,8 +818,8 @@ class TorchDriver(RegoDriver):
     def _subset_signature(self, target: str, subset: frozenset) -> str:
         """Content signature of one partition's sub-program: per member
         constraint, (key, template IR hash, constraint payload), plus the
-        program store's machine fingerprint, "" until the port has a
-        store (ROADMAP A6). Two constraint generations with equal
+        program store's machine fingerprint ("" without a store). Two
+        constraint generations with equal
         signatures stage identical sub-programs, which licenses the
         carry-forward. Memoized per constraint generation (caller holds
         the mutex)."""
@@ -823,7 +840,12 @@ class TorchDriver(RegoDriver):
                 json.dumps(c, sort_keys=True, default=str),
             ))
         parts.sort()
-        sig = hashlib.sha256(json.dumps(["", parts]).encode()).hexdigest()[:16]
+        fp = (
+            self.program_store.fp_digest
+            if self.program_store is not None
+            else ""
+        )
+        sig = hashlib.sha256(json.dumps([fp, parts]).encode()).hexdigest()[:16]
         if len(self._sig_cache) >= 4 * self._cset_sub_max:
             self._sig_cache.pop(next(iter(self._sig_cache)), None)
         self._sig_cache[key] = (gen, sig)
@@ -857,9 +879,10 @@ class TorchDriver(RegoDriver):
         return self._swap_gen
 
     def compile_plane_stats(self) -> Dict[str, Any]:
-        """Compile-plane counters."""
+        """Compile-plane counters + program-store view, the driver side
+        of /debug/programs and the compile_storm flight record."""
         with self._mutex:
-            return {
+            out: Dict[str, Any] = {
                 "constraint_generation": self._constraint_gen,
                 "swap_generation": self._swap_gen,
                 "program_compiles": self.program_compiles,
@@ -867,6 +890,10 @@ class TorchDriver(RegoDriver):
                 "subset_carryforwards": self.subset_carryforwards,
                 "analyzer_mismatches": self.analyzer_mismatches,
             }
+        store = self.program_store
+        if store is not None:
+            out["store"] = store.stats()
+        return out
 
     def _carry_forward(
         self, target: str, subset: frozenset, cs: _ConstraintSet
@@ -1717,6 +1744,8 @@ class TorchDriver(RegoDriver):
             self._swap_gen += 1
             self.subset_swaps += 1
             self._count("program_swap_total", target=target)
+        if self.program_store is not None:
+            self.program_store.attest()
         return True
 
     def _golden_gate(self, target: str, shadow: _ConstraintSet) -> bool:

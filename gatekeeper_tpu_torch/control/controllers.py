@@ -1,4 +1,11 @@
-# Copied from gatekeeper_tpu/control/controllers.py; unchanged.
+# Copied from gatekeeper_tpu/control/controllers.py; only this edit differs.
+# Edit: a template whose reconcile fails (a target this client lacks, a
+# CRD or compile error) cancels its constraint kind's readiness
+# expectations (ROADMAP §C, C8; Gatekeeper's Tracker.TryCancelTemplate):
+# no watch starts for the kind, so the constraints _populate_expectations
+# listed would never be observed and the replica would never be Ready. If
+# the template later ingests, its watch starts and the kind's constraints
+# are ingested and counted as before. The reference keeps them expected.
 """State-ingestion controllers: the reconcile plane.
 
 Counterparts of pkg/controller/*: each controller consumes watch events
@@ -134,6 +141,8 @@ class TemplateController:
                 process="controller",
                 template_name=name,
             )
+            if ev.type != DELETED:
+                self._cancel_constraint_expectations(ev.obj)
         report = None
         if ev.type != DELETED and status == "active":
             getter = getattr(self.client, "template_report", None)
@@ -178,6 +187,18 @@ class TemplateController:
         # (the reference tracker observes on reconcile, not success)
         if self.tracker is not None:
             self.tracker.templates.observe(name)
+
+    def _cancel_constraint_expectations(self, obj: dict) -> None:
+        """The failed template's constraint kind, read from the document
+        itself (create_crd may be what raised), stops gating readiness."""
+        if self.tracker is None:
+            return
+        kind = (
+            ((((obj.get("spec") or {}).get("crd") or {}).get("spec") or {})
+             .get("names") or {})
+        ).get("kind")
+        if isinstance(kind, str) and kind:
+            self.tracker.for_constraint_kind(kind).cancel_all()
 
     def _on_upsert(self, name: str, obj: dict) -> None:
         crd = self.client.create_crd(obj)

@@ -1,4 +1,4 @@
-# Copied from gatekeeper_tpu/control/readiness.py; only this edit differs.
+# Copied from gatekeeper_tpu/control/readiness.py; only these edits differ.
 # Edit: ReadinessTracker.satisfied() latches (ROADMAP §C, C6). Once it has
 # returned True it stays True for the process, as Gatekeeper's tracker does
 # (ready_tracker.go:138-173): a tracker created after that, such as the one
@@ -6,6 +6,9 @@
 # its own stats() but no longer gates readiness. The reference requires
 # every tracker on every call, so a kind first seen after Ready leaves
 # /readyz at 503 for good.
+# Edit: ObjectTracker.cancel_all() (ROADMAP §C, C8): the template
+# controller cancels every expectation of a constraint kind whose template
+# failed to ingest, and stats() reports them as "cancelled".
 """Readiness tracker: the boot-time barrier.
 
 Mirrors pkg/readiness/ready_tracker.go + object_tracker.go: at startup
@@ -32,6 +35,7 @@ class ObjectTracker:
         self._observed: Set[Hashable] = set()
         self._populated = False
         self._satisfied = False
+        self._cancelled = 0
 
     def expect(self, key: Hashable) -> None:
         with self._lock:
@@ -46,6 +50,19 @@ class ObjectTracker:
                 return
             self._expected.discard(key)
             self._observed.discard(key)
+
+    def cancel_all(self) -> None:
+        """Every expectation stops blocking readiness and the expected
+        set is final (Gatekeeper's Tracker.TryCancelTemplate): a
+        constraint kind whose template failed to ingest has no watch, so
+        its constraints would never be observed."""
+        with self._lock:
+            if self._satisfied:
+                return
+            self._cancelled += len(self._expected - self._observed)
+            self._expected.clear()
+            self._observed.clear()
+            self._populated = True
 
     def observe(self, key: Hashable) -> None:
         with self._lock:
@@ -69,10 +86,13 @@ class ObjectTracker:
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
-            return {
+            out = {
                 "expected": len(self._expected),
                 "observed": len(self._observed & self._expected),
             }
+            if self._cancelled:
+                out["cancelled"] = self._cancelled
+            return out
 
 
 class ReadinessTracker:

@@ -1,8 +1,4 @@
 # Copied from gatekeeper_tpu/control/runner.py; only these edits differ.
-# Edit: the `FlightRecorder` (ROADMAP A10) is not ported and is left out
-# with its wiring: the SloEngine and the IntegrityPlane get recorder=None,
-# /debug/flightrecords is not served and no state source is registered,
-# the fleet plane's included.
 # Edit: the MutationSystem screens on the driver's device (its `device`;
 # the card unless the caller asked for the CPU).
 # Edit: `capture_jax_profile` is `capture_torch_profile`: /debug/profile
@@ -189,7 +185,13 @@ class Runner:
         integrity=True,
     ):
         from ..logs import null_logger
-        from ..obs import CostAttributor, DecisionLog, SloEngine, Tracer
+        from ..obs import (
+            CostAttributor,
+            DecisionLog,
+            FlightRecorder,
+            SloEngine,
+            Tracer,
+        )
 
         self.tracer = tracer if tracer is not None else Tracer()
 
@@ -211,9 +213,12 @@ class Runner:
         set_m = getattr(driver, "set_metrics", None)
         if set_m is not None:
             set_m(metrics)
-        # cost-attribution plane (docs/observability.md): per-constraint
-        # device-time accounting at the driver's dispatch seam, served at
-        # /debug/costs
+        # cost-attribution + flight-recorder plane
+        # (docs/observability.md): per-constraint device-time
+        # accounting at the driver's dispatch seam, served at
+        # /debug/costs; trip-triggered postmortems (breaker OPEN,
+        # quarantine, shed burst) at /debug/flightrecords, on disk
+        # when GATEKEEPER_TPU_FLIGHT_DIR is set
         self.attributor = CostAttributor(
             metrics=metrics, replica=pod_name
         )
@@ -222,14 +227,22 @@ class Runner:
             set_a(self.attributor)
         # per-admission decision log (docs/observability.md §Decision
         # log): every plane's "why" records, served at /debug/decisions
+        # and cross-linked into flight records by id + trace id
         self.decisions = DecisionLog(metrics=metrics, replica=pod_name)
+        self.recorder = FlightRecorder(
+            tracer=self.tracer,
+            attributor=self.attributor,
+            metrics=metrics,
+            decisions=self.decisions,
+            replica=pod_name,
+        )
         # streaming SLO engine, fed through the decision-log seam so
         # every plane's verdicts/latencies/sheds stream in without any
-        # handler changes
+        # handler changes; breaches fire slo_breach flight records
         self.slo = SloEngine(
             target=slo_target,
             metrics=metrics,
-            recorder=None,
+            recorder=self.recorder,
             replica=pod_name,
         )
         self.decisions.slo = self.slo
@@ -247,13 +260,13 @@ class Runner:
                 else IntegrityPlane(
                     metrics=metrics,
                     decisions=self.decisions,
-                    recorder=None,
+                    recorder=self.recorder,
                     store=getattr(driver, "program_store", None),
                 )
             )
             self.integrity.metrics = metrics
             self.integrity.decisions = self.decisions
-            self.integrity.recorder = None
+            self.integrity.recorder = self.recorder
             set_i = getattr(driver, "set_integrity", None)
             if set_i is not None:
                 set_i(self.integrity)
@@ -612,6 +625,7 @@ class Runner:
                 max_queue=self.max_queue,
                 drain_grace_s=self.drain_grace_s,
                 partitions=self.partitions or None,
+                recorder=self.recorder,
                 decision_log=self.decisions,
                 attributor=self.attributor,
                 replica=self.pod_name,
@@ -625,6 +639,38 @@ class Runner:
                     "zerocopy" if self.ingest_mode == "on" else "json"
                 ),
             )
+            # postmortem state sources: what a flight record snapshots
+            # alongside the trace tail / cost table / fault points
+            wh = self.webhook
+            self.recorder.add_source(
+                "webhook", lambda: {
+                    "draining": wh.draining,
+                    "shed": wh.batcher.shed_count,
+                    "batch_failures": wh.batcher.batch_failures,
+                    **(
+                        {"breaker": wh.batcher.breaker.snapshot()}
+                        if wh.batcher.breaker is not None
+                        else {}
+                    ),
+                },
+            )
+            if wh.partitioner is not None:
+                self.recorder.add_source(
+                    "partitions", wh.partitioner.postmortem
+                )
+                # compile-plane state: a compile_storm record embeds the
+                # program-store table + per-partition signatures
+                self.recorder.add_source(
+                    "programs", wh.partitioner.programs_table
+                )
+            if self.fleet is not None:
+                self.recorder.add_source("fleet", self.fleet.snapshot)
+            if self.integrity is not None:
+                # a verdict_divergence / device_quarantine record
+                # embeds the integrity plane's ledger + golden state
+                self.recorder.add_source(
+                    "integrity", self.integrity.snapshot
+                )
             self.webhook.start()
             if (
                 self.fleet is not None
@@ -894,6 +940,8 @@ class Runner:
         if self._readyz_httpd is not None:
             self._readyz_httpd.shutdown()
             self._readyz_httpd.server_close()
+        if self.recorder is not None:
+            self.recorder.stop()
         self.watch_mgr.stop()
         if self._warm_thread is not None:
             self._warm_thread.join(timeout=10)
@@ -1074,10 +1122,12 @@ class Runner:
                             stats["driver"]["review_path_warm"] = {
                                 t: warm(t) for t in targets
                             }
-                    # cost-attribution and decision-log headlines (full
-                    # payloads live at /debug/costs and /debug/decisions)
+                    # cost-attribution + flight-recorder headlines
+                    # (full payloads live at /debug/costs and
+                    # /debug/flightrecords)
                     stats["obs"] = {
                         "costs": runner.attributor.snapshot(),
+                        "flightrecords": runner.recorder.snapshot(),
                         "decisions": runner.decisions.snapshot(),
                     }
                     # live SLO headline — the `saturation`/`burning`
@@ -1207,6 +1257,11 @@ class Runner:
                             b'{"error": "partitions disabled"}'
                         )
                         self.send_response(404)
+                elif self.path == "/debug/flightrecords":
+                    # trip-triggered postmortem captures, newest first
+                    # (docs/observability.md §Flight recorder)
+                    payload = runner.recorder.export_json().encode()
+                    self.send_response(200)
                 elif self.path.split("?")[0] == "/debug/decisions":
                     # per-admission "why" records — ?trace_id=/
                     # ?verdict=/?plane=/?limit=/?format=ndjson

@@ -1,5 +1,5 @@
 # Copied from gatekeeper_tpu/externaldata/__init__.py; only the docstring's
-# note on the lint's CLI differs (analysis/cli.py is ROADMAP A10).
+# program name of the lint's CLI differs.
 """External-data providers: batched, cached, fault-aware out-of-band
 lookups (docs/externaldata.md).
 
@@ -18,8 +18,7 @@ them WITHOUT abandoning the fused fast path. The subsystem's layers:
                       builtin resolves through;
   * `extract.py`    — static key extraction feeding batch prefetch;
   * `lint.py`       — GK-P0xx offline provider lint
-                      (`lint_providers`; the analysis CLI is not
-                      ported).
+                      (`python -m gatekeeper_tpu_torch.analysis providers`).
 """
 
 from .binding import get_system, set_system, use_system

@@ -1,6 +1,5 @@
 # Copied from gatekeeper_tpu/integrity/plane.py; only these edits differ.
-# Edit: the docstrings name TorchDriver and call review_host an oracle. The port has no program store yet
-# (ROADMAP A6), so `store` is None and golden sets live in memory only.
+# Edit: the docstrings name TorchDriver and call review_host an oracle.
 # Edit: the shadow oracle evaluates the sampled admissions in a process of
 # its own (integrity/oracle.py: the policy at the sample's constraint
 # generation, the review, the verdict rows back), off the serving

@@ -1,7 +1,5 @@
-# Copied from gatekeeper_tpu/metrics/registry.py; only these edits differ.
-# Edit: serve_metrics takes no `recorder` and serves no
-# /debug/flightrecords (the flight recorder is ROADMAP A10); the module
-# logger is named gatekeeper_tpu_torch.metrics.
+# Copied from gatekeeper_tpu/metrics/registry.py; only this edit differs.
+# Edit: the module logger is named gatekeeper_tpu_torch.metrics.
 """In-process metrics: counters, gauges, distributions with optional
 histogram buckets; Prometheus text format exposition (with OpenMetrics
 trace-id exemplars) over stdlib HTTP. Per-family series cardinality is
@@ -411,6 +409,7 @@ def serve_metrics(
     bind_addr: str = "127.0.0.1",
     tracer=None,
     attributor=None,
+    recorder=None,
     decisions=None,
     partitions=None,
     slo=None,
@@ -422,7 +421,8 @@ def serve_metrics(
     0.0.0.0 so Prometheus can scrape the pod IP (run.py wires this).
     With a tracer, /debug/traces serves the trace ring (?trace_id= /
     ?limit= / ?format=otlp — docs/observability.md); an attributor adds
-    /debug/costs (the top-K cost table), a decision log adds /debug/decisions, an SLO
+    /debug/costs (the top-K cost table), a flight recorder adds
+    /debug/flightrecords, a decision log adds /debug/decisions, an SLO
     engine adds /debug/slo (live attainment/burn/saturation,
     docs/observability.md §SLO & saturation), a sched callable
     (returning per-plane scheduler snapshots) adds /debug/sched
@@ -447,6 +447,9 @@ def serve_metrics(
                 payload = json.dumps(
                     attributor.table(_debug_costs_k(self.path))
                 ).encode()
+                ctype = "application/json"
+            elif recorder is not None and route == "/debug/flightrecords":
+                payload = recorder.export_json().encode()
                 ctype = "application/json"
             elif decisions is not None and route == "/debug/decisions":
                 payload = export_decisions(decisions, self.path).encode()

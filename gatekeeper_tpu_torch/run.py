@@ -2,8 +2,6 @@
 # Edit: the client's driver is TorchDriver; build_runner takes `device`
 # (None = "cuda", which raises without a card; tests pass "cpu"), and no
 # flag sets it. main's start-up log names the device.
-# Edit: the metrics server gets no flight recorder (not ported, ROADMAP
-# A10).
 """Process entry point: `python -m gatekeeper_tpu_torch.run` — the main.go
 analog (reference main.go:80-308).
 
@@ -244,6 +242,7 @@ def main(argv=None) -> int:
                 # works for an operator with port-forward access)
                 tracer=runner.tracer,
                 attributor=runner.attributor,
+                recorder=runner.recorder,
                 decisions=runner.decisions,
                 partitions=getattr(
                     runner.webhook, "partitioner", None

@@ -25,8 +25,7 @@
 # Edit: WebhookServer also hands `integrity` and `attributor` to the
 # driver (set_integrity, set_attributor), as the reference's Runner does,
 # so a server built without the Runner wires them too.
-# Edit: the flight recorder (ROADMAP A10) is not ported and is left out
-# with its argument. A path other than /v1/admit, /v1/admitlabel,
+# Edit: a path other than /v1/admit, /v1/admitlabel,
 # /v1/mutate and /v1/agent/review is answered 404, so the /readyz and
 # /debug/partitions, /debug/programs documents are not served (the
 # dispatcher's plan_table and programs_table build them).
@@ -157,6 +156,9 @@ class MicroBatcher:
         # failed partition fails ONLY the requests its subset matches
         # (fail policy), and quarantined devices re-home their partitions
         partitioner=None,
+        # obs.FlightRecorder: shed bursts (and the default breaker's
+        # OPEN transitions) trip postmortem captures
+        recorder=None,
         # obs.DecisionLog: the batch worker stashes per-request
         # dispatch facts (route, partition set dispatched vs
         # mask-skipped, rows_dispatched/rows_total, cache counts,
@@ -179,6 +181,7 @@ class MicroBatcher:
         self.client = client
         self.target = target
         self.partitioner = partitioner
+        self.recorder = recorder
         self.decisions = decisions
         self.integrity = integrity
         # (constraint generation, corpus size) cache for rows facts
@@ -204,6 +207,7 @@ class MicroBatcher:
         if breaker is None:
             breaker = CircuitBreaker(
                 plane=self.plane, metrics=metrics, tracer=tracer,
+                recorder=recorder,
             )
         self.breaker: Optional[CircuitBreaker] = breaker or None
         # the admission scheduler owns enqueue-side admit/shed and the
@@ -391,6 +395,13 @@ class MicroBatcher:
                 "shed", sub_wall if sub_wall is not None else now, now,
                 parent=ctx, reason=reason, plane=self.plane,
             )
+        if self.recorder is not None:
+            # shed-burst detection: the recorder counts; crossing its
+            # threshold trips ONE postmortem capture for the storm
+            try:
+                self.recorder.note_shed(self.plane)
+            except Exception:
+                pass
         fut.set_exception(exc)
 
     def submit(self, request: Dict[str, Any], span_ctx=None,
@@ -1008,6 +1019,10 @@ class WebhookServer:
         # routes away before connections start failing (the
         # preStop-sleep pattern; 0 = flip-and-close immediately)
         drain_grace_s: float = 0.0,
+        # obs.FlightRecorder: threaded to the batcher (shed bursts), the
+        # plane breaker, and the partitioner's per-device breakers so a
+        # trip anywhere on this server captures one postmortem
+        recorder=None,
         # obs.DecisionLog: per-admission "why" records; None = decision
         # plane off
         decision_log=None,
@@ -1049,6 +1064,7 @@ class WebhookServer:
     ):
         self.client = client  # warmup() runs through it
         self.tracer = tracer
+        self.recorder = recorder
         self.decision_log = decision_log
         self.request_timeout = request_timeout
         self.drain_grace_s = drain_grace_s
@@ -1070,6 +1086,7 @@ class WebhookServer:
                 plane="validation",
                 metrics=metrics,
                 tracer=tracer,
+                recorder=recorder,
                 attributor=attributor,
                 replica=replica,
                 corpus=corpus,
@@ -1088,6 +1105,7 @@ class WebhookServer:
             metrics=metrics, tracer=tracer,
             max_queue=max_queue,
             partitioner=self.partitioner,
+            recorder=recorder,
             decisions=decision_log,
             sched_policy=sched_policy,
             slo=slo,

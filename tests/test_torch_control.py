@@ -1431,3 +1431,94 @@ def test_constraint_churn_is_counted_per_target():
     # the subset's content is unchanged: carried forward, not rebuilt
     assert drv._subset_cset(TARGET, sub) is k8s_sub
     assert drv.subset_carryforwards == 1
+
+
+# ---------------------------------------------------------------------------
+# C8: a replica without a target's plane beside templates of that target
+
+
+AGENT_KINDS = ("AgentShellAllowlist", "AgentNetAllowlist", "AgentFsAllowlist")
+
+
+def _c8_cluster(fake_cluster):
+    """A K8s template and constraint beside 3 agent templates with 2
+    constraints each (seeded: the same documents for both packages)."""
+    from gatekeeper_tpu_torch.agentaction import TARGET_NAME
+
+    cluster = fake_cluster()
+    cluster.apply(template("K8sRequiredLabels", REQ_LABELS))
+    cluster.apply(constraint("K8sRequiredLabels", "need-owner",
+                             params={"labels": ["owner"]}))
+    for i, kind in enumerate(AGENT_KINDS):
+        tmpl = template(kind, SHELL_ALLOWLIST.replace(
+            "agentshellallowlist", kind.lower()))
+        tmpl["spec"]["targets"][0]["target"] = TARGET_NAME
+        cluster.apply(tmpl)
+        for j in range(2):
+            cluster.apply(constraint(kind, f"{kind.lower()}-{j}",
+                                     params={"allowed": [f"cmd{i}{j}"]},
+                                     match={"tools": ["shell.*"]}))
+    cluster.apply(config())
+    cluster.apply(pod("good", labels={"owner": "me"}))
+    return cluster
+
+
+def test_replica_without_a_target_becomes_ready_beside_its_templates():
+    """C8 repaired: a K8s-only port Runner beside agent templates and
+    their constraints is Ready; each agent kind's tracker reports its
+    expectations cancelled, and each agent template's status keeps its
+    ingest error."""
+    cluster = _c8_cluster(FakeCluster)
+    runner = make_runner(cluster, readyz_port=0)
+    try:
+        runner.start()
+        assert runner.wait_ready(15), runner.tracker.stats()
+        stats = runner.tracker.stats()
+        for kind in AGENT_KINDS:
+            assert stats[f"constraint/{kind}"] == {
+                "expected": 0, "observed": 0, "cancelled": 2}, stats
+            name = kind.lower()
+            assert name in runner.template_controller.errors
+            by_pod = runner.status_agg.template_by_pod(name)
+            assert len(by_pod) == 1 and by_pod[0]["errors"], by_pod
+        assert stats["constraint/K8sRequiredLabels"] == {
+            "expected": 1, "observed": 1}
+        assert _readyz(runner.readyz_port)[0] == 200
+        # the K8s policy serves as before
+        assert [r.constraint["metadata"]["name"]
+                for r in runner.client.review(pod("bad")).results()] == [
+            "need-owner"]
+    finally:
+        runner.stop()
+
+
+def test_jax_package_never_ready_beside_an_unservable_target():
+    """The reference side of C8, pinned as a standing divergence: the JAX
+    package's Runner on the same cluster ingests everything it can and
+    stays unready, each agent kind 0 of 2 observed."""
+    from gatekeeper_tpu.constraint import (
+        Backend as JBackend,
+        K8sValidationTarget as JTarget,
+        RegoDriver as JRegoDriver,
+    )
+    from gatekeeper_tpu.control import FakeCluster as JFakeCluster
+    from gatekeeper_tpu.control import Runner as JRunner
+
+    cluster = _c8_cluster(JFakeCluster)
+    runner = JRunner(cluster,
+                     JBackend(JRegoDriver()).new_client(JTarget()), TARGET,
+                     readyz_port=0, audit_interval=3600.0)
+    try:
+        runner.start()
+        assert _wait(lambda: all(
+            k.lower() in runner.template_controller.errors
+            for k in AGENT_KINDS), 15)
+        runner.watch_mgr.wait_idle(10)
+        assert not runner.wait_ready(2)
+        stats = runner.tracker.stats()
+        for kind in AGENT_KINDS:
+            assert stats[f"constraint/{kind}"] == {
+                "expected": 2, "observed": 0}, stats
+        assert _readyz(runner.readyz_port)[0] == 503
+    finally:
+        runner.stop()

@@ -589,6 +589,57 @@ def test_agent_plane_runs_with_jax_blocked():
     assert out.stdout.split() == ["False", "3", "1", "0"]
 
 
+STORE_PLANES = (
+    "gatekeeper_tpu_torch.compile",
+    "gatekeeper_tpu_torch.compile.store",
+    "gatekeeper_tpu_torch.obs.flightrecorder",
+    "gatekeeper_tpu_torch.analysis.cli",
+    "gatekeeper_tpu_torch.analysis.canarygate",
+)
+
+
+def test_store_recorder_and_analysis_cli_run_with_jax_blocked(tmp_path):
+    """The compile-artifact store, the flight recorder and the offline
+    analysis CLI import and run with jax and the JAX package blocked: a
+    store attests a host library and a second store adopts it, the
+    recorder captures a trigger to disk, and `all` gates deploy/policies
+    (the canary gate on TorchDriver on the CPU)."""
+    assert set(STORE_PLANES) <= set(_modules())
+    code = (
+        "import importlib, io, os, sys, time, contextlib\n"
+        "for m in ('jax', 'jaxlib', 'gatekeeper_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {STORE_PLANES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from gatekeeper_tpu_torch.compile import ProgramStore\n"
+        "from gatekeeper_tpu_torch.kernels import build\n"
+        "from gatekeeper_tpu_torch import native\n"
+        "from gatekeeper_tpu_torch.obs import FlightRecorder\n"
+        "from gatekeeper_tpu_torch.analysis.cli import run\n"
+        f"root = {str(tmp_path / 'store')!r}\n"
+        "build._store.append(ProgramStore(root))\n"
+        "exe = native.build_frontend()\n"
+        "again = ProgramStore(root)\n"
+        f"rec = FlightRecorder(dir={str(tmp_path / 'fr')!r}, debounce_s=0.0)\n"
+        "rec.trigger('breaker_open', breaker='device:validation')\n"
+        "deadline = time.monotonic() + 10\n"
+        "while not rec.captured and time.monotonic() < deadline:\n"
+        "    time.sleep(0.01)\n"
+        "rec.stop()\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    rc = run(['all', 'deploy/policies'])\n"
+        f"print(again.hits, rec.captured, len(os.listdir({str(tmp_path / 'fr')!r})), rc)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("GATEKEEPER_TPU_NO_COMPILE_CACHE", None)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-4:] == ["1", "1", "1", "0"]
+
+
 def test_entry_and_inventory_joins_run_with_jax_blocked():
     """The harness step (gatekeeper_tpu_torch.entry) and an audit over the
     uniqueness joins run on the CPU in an interpreter where importing jax

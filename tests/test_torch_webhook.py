@@ -615,11 +615,12 @@ UNPORTED = [
 
 
 # the driver planes (partitions, cost attribution, integrity), TLS, the
-# mutation plane, the corpus plane and the agent plane have their
-# arguments since they were ported; those cases check the wiring instead
+# mutation plane, the corpus plane, the agent plane and the flight
+# recorder have their arguments since they were ported; those cases check
+# the wiring instead
 PORTED = {"partitions", "partition_devices", "attributor", "replica",
           "integrity", "tls", "cert_dir", "rotator", "mutation_system",
-          "corpus", "agent_review", "agent_mutation_system"}
+          "corpus", "agent_review", "agent_mutation_system", "recorder"}
 TLS_ARGS = {"tls", "cert_dir", "rotator"}
 
 
@@ -659,6 +660,10 @@ def test_unported_plane_raises(client, name, value, tmp_path):
         kw[name] = CostAttributor()
     elif name == "integrity":
         kw[name] = IntegrityPlane()
+    elif name == "recorder":
+        from gatekeeper_tpu_torch.obs import FlightRecorder
+
+        kw[name] = FlightRecorder()
     elif name == "mutation_system":
         from gatekeeper_tpu_torch.mutation import MutationSystem
 
@@ -694,6 +699,10 @@ def test_unported_plane_raises(client, name, value, tmp_path):
             assert server.mutation_handler.batcher is server.mutate_batcher
         elif name == "corpus":
             assert part.corpus is kw[name]
+        elif name == "recorder":
+            assert server.recorder is kw[name] is server.batcher.recorder
+            assert part.recorder is kw[name]
+            assert part.breaker(0).recorder is kw[name]
         elif name in ("agent_review", "agent_mutation_system"):
             from gatekeeper_tpu_torch.agentaction import TARGET_NAME
 
