@@ -175,6 +175,21 @@ Phases, one line each on stdout, in this order:
            dispatch seconds with and without an evaluation beside them
            and the full collections during the load; the Runner's
            /debug/flightrecords holds no record after the load;
+  soak_load  the soak plane's open-loop generator against the same
+           Runner while it serves: a Scenario with smoke_scenario()'s
+           rate, length, deadline, window and seed (30 requests/s for
+           12.5 s, 0.5 s, 1 s windows, seed 99), one steady phase and
+           validation traffic only; run_open_loop POSTs one
+           AdmissionReview of a make_pod pod over HTTPS per Poisson
+           arrival. build_report with the device-time split of the load
+           (driver_phase_seconds by phase, from the Runner's registry):
+           the report passes check_soak_schema, every sample is answered
+           200 (no transport error, client timeout, unserved arrival or
+           fail-policy answer), the split's dispatch seconds and the
+           load's compiled pairs are above 0, K1-K4 launch, and the
+           SUMMARY line parses back to the report's headline. Achieved
+           requests/s, attainment, the worst window p99, shed, the
+           split's fractions and the SUMMARY line are printed;
   mutation the same Runner serving /v1/mutate: 48 mutators
            (mutation_docs: 16 Assign, 16 AssignMetadata, 16 ModifySet,
            half with a labelSelector, a quarter with namespaces or
@@ -247,7 +262,10 @@ Phases, one line each on stdout, in this order:
            stand-in with 1,000 pods x 50 constraints, in the process
            defaults (discovery audit, --audit-chunk-size 512, the
            Secret-backed cert store, the fleet plane): /readyz 200,
-           /metrics with the audit series, one HTTPS AdmissionReview
+           /metrics with the audit series and, after the first sweep,
+           the driver's (template_vectorization, driver_pairs_total,
+           driver_phase_seconds with phase="dispatch": a discovery
+           sweep's pages are path="webhook"), one HTTPS AdmissionReview
            verified by the Secret's CA and equal to the interpreter's,
            the device named in its log, exit 0 within the drain grace +
            30 s of SIGTERM. Its stand-in serves no FleetState kind: the
@@ -294,8 +312,8 @@ build/parent (git archive):
 
     python3 chip_smoke.py --runner
 
-runs card, build and the runner phase alone on the process defaults
-(its first sweep held against itself, no full phase);
+runs card, build, the runner phase on the process defaults (its first
+sweep held against itself, no full phase) and soak_load;
 
     python3 chip_smoke.py --fleet
 
@@ -407,6 +425,7 @@ PATH_KERNELS = {
     "extdata": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "mutation": ("match_matrix",),
     "fleet": ("match_matrix", "slab_gather", "egroup", "need_tail"),
+    "soak_load": ("match_matrix", "slab_gather", "egroup", "need_tail"),
     "agent": ("match_matrix", "slab_gather", "need_tail", "flush_deltas"),
 }
 
@@ -4957,6 +4976,175 @@ def phase_runner(rec, full_counts, n_pods: int = 100_000,
     return launches, state
 
 
+# -- soak_load: the port's open-loop generator against the Runner ------------
+
+
+def _phase_totals(snapshot) -> dict:
+    """{phase: seconds} of a registry snapshot's driver_phase_seconds,
+    summed over paths (the soak harness's device-time split)."""
+    import re
+
+    rx = re.compile(r'phase="([a-z_]+)"')
+    out = {}
+    for key, d in snapshot["distributions"].items():
+        m = rx.search(key)
+        if key.startswith("driver_phase_seconds") and m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + float(d["sum"])
+    return out
+
+
+def _compiled_pairs(snapshot) -> float:
+    return sum(v for k, v in snapshot["counters"].items()
+               if k.startswith("driver_pairs_total")
+               and 'route="compiled"' in k)
+
+
+def soak_split(before, after) -> dict:
+    """The device-time split of what ran between two registry snapshots:
+    seconds and fractions by `driver_phase_seconds` phase, and the
+    dispatch phase's share (the reference harness's device_fraction)."""
+    b, a = _phase_totals(before), _phase_totals(after)
+    secs = {k: round(a[k] - b.get(k, 0.0), 4) for k in sorted(a)}
+    total = sum(secs.values())
+    out = {"seconds": secs}
+    if total > 0:
+        out["fractions"] = {k: round(v / total, 4) for k, v in secs.items()}
+        out["device_fraction"] = round(secs.get("dispatch", 0.0) / total, 4)
+    return out
+
+
+def phase_soak_load(state, drain_s: float = 10.0):
+    """The port's soak modules against the runner phase's Runner while it
+    serves: a Scenario with smoke_scenario()'s rate, length, deadline,
+    window and seed (30 requests/s for 12.5 s, 0.5 s, 1 s windows, seed
+    99), one `steady` phase and validation traffic only, driven by
+    run_open_loop with Poisson arrivals; each arrival POSTs one
+    AdmissionReview of a make_pod pod over HTTPS (the Secret's CA; one
+    keep-alive connection per generator worker). The device-time split
+    comes from the Runner's registry (driver_phase_seconds by phase over
+    the load), the report from build_report. Gates: the report passes
+    check_soak_schema, every sample was answered 200 with no transport
+    error, client timeout, unserved arrival or fail-policy answer, the
+    split's dispatch seconds and the compiled pairs of the load are above
+    0, K1-K4 launch, and the SUMMARY line parses back to the report's
+    headline. Attainment is reported, not gated: each connection's first
+    request waits for its TLS handshake. `drain_s`: how long answers are
+    awaited after the last arrival (the webhook's request timeout).
+    -> launches."""
+    import http.client
+    import itertools
+    import threading
+
+    from gatekeeper_tpu_torch.kernels import ops
+    from gatekeeper_tpu_torch.soak import (
+        Scenario,
+        build_report,
+        check_soak_schema,
+        parse_summary_line,
+        run_open_loop,
+        smoke_scenario,
+        summarize_soak,
+    )
+    from gatekeeper_tpu_torch.soak.loadgen import (
+        CLIENT_TIMEOUT,
+        CONN_ERROR,
+        UNSERVED,
+    )
+
+    t0 = time.perf_counter()
+    api, runner = state["api"], state["runner"]
+    base = smoke_scenario()
+    scn = Scenario.from_dict({
+        "name": "soak-smoke-runner", "duration_s": base.duration_s,
+        "rps": base.rps, "deadline_s": base.deadline_s,
+        "window_s": base.window_s, "seed": base.seed, "tls": True,
+        "planes": {"validation": 1.0},
+        "events": [{"at": 0.0, "action": "phase", "name": "steady"}],
+    })
+    ctx = _https_context(api)
+    port = runner.webhook.port
+    timeout = runner.webhook.request_timeout + drain_s
+    local = threading.local()
+    lock = threading.Lock()
+    seq = itertools.count()
+    bodies = []
+
+    def submit(plane):
+        with lock:
+            i = next(seq)
+        conn = getattr(local, "conn", None)
+        if conn is None:
+            conn = local.conn = http.client.HTTPSConnection(
+                "127.0.0.1", port, timeout=timeout, context=ctx)
+        req = admission_request(
+            make_pod(RUNNER_SEED + i, name=f"soak-{i}"), f"soak-{i}")
+        try:
+            conn.request("POST", "/v1/admit", _envelope(req),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+        except Exception:
+            conn.close()
+            local.conn = None
+            raise
+        if resp.status != 200:
+            return resp.status, "ok"
+        body = json.loads(data)
+        with lock:
+            bodies.append(body)
+        return 200, "ok" if body["response"]["allowed"] else "denied"
+
+    ops.reset_launches()
+    before = runner.metrics.snapshot()
+    load = run_open_loop(submit, scn.rps, scn.duration_s, scn.deadline_s,
+                         planes=scn.planes, seed=scn.seed, drain_s=drain_s)
+    after = runner.metrics.snapshot()
+    launches = dict(ops.LAUNCHES)
+    split = soak_split(before, after)
+    report = build_report(scn.to_dict(), load, [], [], split)
+    line = summarize_soak(report)
+    head = parse_summary_line(line)
+    bad = {o: sum(s.outcome == o for s in load.samples)
+           for o in (CONN_ERROR, CLIENT_TIMEOUT, UNSERVED)}
+    not_200 = sum(s.status != 200 for s in load.samples)
+    fail_policy = sum(_unavailable(b) for b in bodies)
+    pairs = _compiled_pairs(after) - _compiled_pairs(before)
+    lat = sorted(s.latency_s for s in load.samples)
+    out = {
+        "phase": "soak_load", "scenario": scn.to_dict(),
+        "generated": load.generated, "samples": len(load.samples),
+        "achieved_rps": report["open_loop"]["achieved_rps"],
+        "attainment": report["slo"]["attainment"],
+        "worst_window_p99_ms": report["slo"]["worst_window_p99_ms"],
+        "p50_s": _quantile(lat, 0.5) if lat else None,
+        "p99_s": _quantile(lat, 0.99) if lat else None,
+        "shed": report["shed"], "not_200": not_200, "errors": bad,
+        "fail_policy": fail_policy, "compiled_pairs": pairs,
+        "device_time_split": split, "checks": report["checks"],
+        "launches": launches, "seconds": time.perf_counter() - t0,
+    }
+    print(json.dumps(out, default=float), flush=True)
+    print(line, flush=True)
+    problems = check_soak_schema(report)
+    want = {"scenario": scn.name, "achieved_rps": out["achieved_rps"],
+            "slo_attainment": out["attainment"],
+            "shed_rate": report["shed"]["rate"],
+            "checks": report["checks"]}
+    if problems or any(head.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"soak_load: schema {problems}, SUMMARY "
+                             f"{head} against {want}")
+    if not load.samples or not_200 or any(bad.values()) or fail_policy:
+        raise AssertionError(
+            f"soak_load: {not_200} of {len(load.samples)} samples not 200, "
+            f"{bad}, {fail_policy} fail-policy answers")
+    if not split["seconds"].get("dispatch", 0.0) > 0 or not pairs > 0:
+        raise AssertionError(f"soak_load: split {split}, {pairs} compiled "
+                             "pairs over the load")
+    missing = [k for k in PATH_KERNELS["soak_load"] if launches[k] <= 0]
+    if missing and runner.client._driver.device.type == "cuda":
+        raise AssertionError(f"soak_load: kernels never launched: {missing}")
+    return launches
+
 
 # -- mutation: /v1/mutate on the Runner (config #5) --------------------------
 
@@ -6829,6 +7017,26 @@ def phase_process(n_pods: int = 1000, n_constraints: int = 50,
                          or ln.startswith("gatekeeper_violations")})
         violations = [ln for ln in text.splitlines()
                       if ln.startswith("gatekeeper_violations")]
+        # the driver's series, late-wired by the Runner (C9): verdict
+        # gauges, pair counters and the dispatch phase of the sweep. A
+        # discovery sweep pages through review_many, whose dispatches
+        # carry path="webhook" (the reference labels by corpus: only a
+        # sweep of the synced cache is path="audit")
+        driver = {
+            "template_vectorization": _metric(
+                text, "template_vectorization"),
+            "driver_pairs_total": _metric(text, "driver_pairs_total",
+                                          route="compiled"),
+            "dispatch_count": {
+                p: _metric(text, "driver_phase_seconds_count",
+                           phase="dispatch", path=p)
+                for p in ("audit", "webhook")},
+        }
+        if not (driver["template_vectorization"] > 0
+                and driver["driver_pairs_total"] > 0
+                and driver["dispatch_count"]["webhook"] > 0):
+            raise AssertionError(f"process: driver series on /metrics: "
+                                 f"{driver}")
         # the degrade path: no FleetState kind, publishes fail, counted
         degrade = {
             "publish_failures_total": _metric(
@@ -6871,7 +7079,8 @@ def phase_process(n_pods: int = 1000, n_constraints: int = 50,
         "phase": "process", "pods": n_pods, "constraints": n_constraints,
         "ready_s": ready_s, "audit_series": series,
         "violations": violations, "allowed": body["response"]["allowed"],
-        "fleet_degrade": degrade, "sigterm_exit": rc, "sigterm_s": term_s,
+        "driver_series": driver, "fleet_degrade": degrade,
+        "sigterm_exit": rc, "sigterm_s": term_s,
         "start_log": json.loads(device_lines[0]),
         "seconds": time.perf_counter() - t0,
     }), flush=True)
@@ -7425,9 +7634,9 @@ def main() -> int:
                          if "--tree" in sys.argv else None)
         return 0
     if "--runner" in sys.argv or "--fleet" in sys.argv:
-        # the runner phase alone on the process defaults (its first
-        # sweep's violations are not held against a full phase); with
-        # --fleet, then extdata, agent, fleet and process on it
+        # the runner and soak_load phases alone on the process defaults
+        # (the first sweep's violations are not held against a full
+        # phase); with --fleet, then extdata, agent, fleet and process
         sys.path.insert(0, ROOT)
         phase_card()
         api = ApiProcess(100_000, 500, catalogue=True)
@@ -7439,6 +7648,8 @@ def main() -> int:
         _, state = phase_runner(rec, None, api=api)
         mark("runner")
         try:
+            phase_soak_load(state)
+            mark("soak_load")
             if "--fleet" in sys.argv:
                 phase_extdata(rec, state, n_requests=512)
                 mark("extdata")
@@ -7527,6 +7738,8 @@ def main() -> int:
                                           api=runner_api)
     mark("runner")
     try:
+        launches_soak = phase_soak_load(state)
+        mark("soak_load")
         launches_mut, k1_mutation = phase_mutation(rec, state)
         mark("mutation")
         launches_ext = phase_extdata(rec, state, n_requests=512)
@@ -7550,7 +7763,8 @@ def main() -> int:
               "ingest": launches_ingest, "partitions": launches_part,
               "audit_churn": launches_churn,
               "inventory": launches_inv, "full_output": launches_out,
-              "runner": launches_runner, "mutation": launches_mut,
+              "runner": launches_runner, "soak_load": launches_soak,
+              "mutation": launches_mut,
               "extdata": launches_ext, **launches_agent,
               "fleet": launches_fleet},
         extra={name: dict(

@@ -61,8 +61,27 @@ row feature. Each batch and each sweep opens one fetch epoch and
 prefetches its deduped keys (one outbound fetch per provider); the
 feature's per-row bits are computed from the live response cache on every
 dispatch and staged volatile, never cached on the corpus, so a TTL expiry
-routes the rows back to the interpreter's re-check. Not carried over from
-TpuDriver (see ROADMAP.md): the per-query pair/render/phase metric series.
+routes the rows back to the interpreter's re-check.
+
+Metrics: with a MetricsRegistry (`metrics=`, or `set_metrics` when the
+Runner builds its registry after the driver) the driver records the
+reference's series at the counterpart of each reference site, with its
+names and tag keys: the verdict gauges and fallback, mismatch and
+compile-plane counters; `batch_occupancy_percent` and
+`padding_waste_rows_total` per corpus staging (`path` audit or webhook);
+`driver_pairs_total` (`route`, `path`), `driver_render_total` (`route`)
+and `driver_phase_seconds` (`phase`, `path`) per evaluation;
+`driver_render_cache_evictions_total`, `driver_hot_redispatch_total`
+and `driver_render_errors_total`. `driver_phase_seconds` takes its
+`phase` values from `stats["phase_seconds"]`: `policy`, `encode`,
+`stage`, `row_features`, `dispatch`, `decode` and `render`. Of the
+reference's three, `flatten_encode` stands as `encode` (the constraint
+set's `policy` before it), `device_dispatch` as `dispatch` (the staging,
+row features and decode around it have phases of their own) and
+`render` as `render`. Not emitted, as no site here counts them:
+`driver_cold_batches_total` (no batch is served around a cold kernel)
+and `program_cache_total` / `program_compile_seconds` (jit
+specializations; PyTorch compiles none, parallel/fused.py).
 The compile-artifact store (`program_store`, compile/) is the process's
 (kernels/build.py `process_store`) on a CUDA driver and None on the CPU,
 as the reference's is None without JAX: it gates the kernel and native
@@ -269,6 +288,7 @@ class TorchDriver(RegoDriver):
         ] = {}
         self.render_cache_max = 65536
         self._render_errors = 0  # compiled-render failures sent to interp
+        self._render_cache_evictions = 0  # oldest rendered pairs dropped
         self._hot_redispatches = 0  # chunks rerun for hot-row overflow
         # derived-key prune render caches (inventory joins): key index per
         # data generation, and the helper oracles that build keys
@@ -447,6 +467,19 @@ class TorchDriver(RegoDriver):
         driver prefetches each batch's deduped keys through it and
         fills the extdata row-feature screens from its cache."""
         self.external_data = system
+
+    def set_metrics(self, metrics) -> None:
+        """Late metrics wiring (the Runner builds its registry after the
+        driver): the registry goes to the compile-artifact store too when
+        it has none, and every verdict already analysed is exported."""
+        self.metrics = metrics
+        if (
+            self.program_store is not None
+            and self.program_store.metrics is None
+        ):
+            self.program_store.metrics = metrics
+        for (_t, kind), rep in list(self._analysis.items()):
+            self._export_verdict(kind, rep)
 
     def set_attributor(self, attributor) -> None:
         """Wire an obs.CostAttributor: from here on every fused dispatch's
@@ -1227,6 +1260,16 @@ class TorchDriver(RegoDriver):
             return corpus.staged
         n = len(corpus.reviews)
         chunk = min(N_CHUNK, _bucket(n, lo=64))
+        if self.metrics is not None:
+            # what the bucketed chunk shape costs in padded rows
+            padded = chunk * -(-n // chunk)
+            path = "audit" if corpus.data_gen >= 0 else "webhook"
+            self.metrics.observe(
+                "batch_occupancy_percent", 100.0 * n / padded, path=path
+            )
+            self.metrics.record(
+                "padding_waste_rows_total", padded - n, path=path
+            )
         chunks = []
         for start in range(0, n, chunk):
             end = min(start + chunk, n)
@@ -1306,6 +1349,7 @@ class TorchDriver(RegoDriver):
         chunk's row feature planes ride along, so the rerun flags the
         rows the sweep counted."""
         self._hot_redispatches += 1
+        self._count("driver_hot_redispatch_total")
         r_cap = 1 << (n_hot - 1).bit_length()
         batch = stacked.chunk_view(ci)
         while True:
@@ -1930,6 +1974,8 @@ class TorchDriver(RegoDriver):
                     if render_cache is not None:
                         if len(render_cache) >= self.render_cache_max:
                             render_cache.popitem(last=False)
+                            self._render_cache_evictions += 1
+                            self._count("driver_render_cache_evictions_total")
                         render_cache[(n_i, c_i)] = out
                 per_review[n_i].extend(out)
                 n_results += len(out)
@@ -1950,6 +1996,7 @@ class TorchDriver(RegoDriver):
                 "prune_index_seconds": self._prune_build_s - prune_s0,
                 "render_cache_hits": n_cache_hits,
                 "render_errors": self._render_errors,
+                "render_cache_evictions": self._render_cache_evictions,
                 "hot_redispatches": self._hot_redispatches,
                 # dead token slots the IR liveness mask dropped from this
                 # batch's encode (0 for the keep-all audit corpus)
@@ -1963,6 +2010,20 @@ class TorchDriver(RegoDriver):
                 "fallback_codes": dict(cs.fallback_codes or {}),
                 "analyzer_mismatches": self.analyzer_mismatches,
             }
+            if self.metrics is not None:
+                path = "audit" if corpus.data_gen >= 0 else "webhook"
+                m = self.metrics
+                m.record("driver_pairs_total", stat_c, route="compiled",
+                         path=path)
+                m.record("driver_pairs_total", stat_i, route="interp",
+                         path=path)
+                m.record("driver_render_total", n_host, route="host")
+                m.record("driver_render_total", n_interp - n_pruned,
+                         route="interp")
+                m.record("driver_render_total", n_pruned, route="pruned")
+                for phase, dt in phases.items():
+                    m.observe("driver_phase_seconds", dt, phase=phase,
+                              path=path)
             if trace is not None:
                 trace.append(
                     f"torch dispatch: {stat_c} compiled pairs, "
@@ -2185,6 +2246,7 @@ class TorchDriver(RegoDriver):
                 # a plan evaluation failure degrades to the interpreter,
                 # never fails the sweep; counted in stats
                 self._render_errors += 1
+                self._count("driver_render_errors_total")
                 continue
             for n_i, c_i in plist:
                 objs = row_objs.get(n_i)

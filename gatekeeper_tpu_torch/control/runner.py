@@ -3,8 +3,11 @@
 # the card unless the caller asked for the CPU).
 # Edit: `capture_jax_profile` is `capture_torch_profile`: /debug/profile
 # writes a torch.profiler Chrome trace.
-# Edit: TorchDriver has no `set_metrics`; the Runner reaches it through
-# getattr as the reference does. Its `warm_review_path` compiles and
+# Edit: the Runner late-wires its registry through TorchDriver's
+# `set_metrics` (reached through getattr as in the reference), so the
+# driver's series (verdict gauges, driver_pairs_total,
+# driver_phase_seconds, ...) reach /metrics. TorchDriver's
+# `warm_review_path` compiles and
 # stages the policy, so the warm thread warms the review path as the
 # reference's does, and /readyz `stats.driver` carries
 # `review_path_warm`: a webhook-only replica is Ready before its policy

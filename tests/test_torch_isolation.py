@@ -669,6 +669,48 @@ def test_entry_and_inventory_joins_run_with_jax_blocked():
     assert totals > 0 and pruned > 0 and results > 0
 
 
+SOAK_PLANE = (
+    "gatekeeper_tpu_torch.summary",
+    "gatekeeper_tpu_torch.soak",
+    "gatekeeper_tpu_torch.soak.loadgen",
+    "gatekeeper_tpu_torch.soak.scenario",
+    "gatekeeper_tpu_torch.soak.report",
+)
+
+
+def test_summary_and_soak_run_with_jax_blocked():
+    """The SUMMARY contract and the soak modules import, and a short open
+    loop, its report and its SUMMARY line round-trip, in an interpreter
+    where importing jax or the JAX package fails."""
+    assert set(SOAK_PLANE) <= set(_modules())
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'jaxlib', 'gatekeeper_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {SOAK_PLANE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from gatekeeper_tpu_torch import soak\n"
+        "scn = soak.Scenario.from_dict({'duration_s': 0.5, 'rps': 40,\n"
+        "    'window_s': 0.25, 'planes': {'validation': 1.0},\n"
+        "    'events': [{'at': 0, 'action': 'phase', 'name': 'steady'}]})\n"
+        "load = soak.run_open_loop(lambda p: (200, 'ok'), scn.rps,\n"
+        "    scn.duration_s, scn.deadline_s, planes=scn.planes, seed=1)\n"
+        "rep = soak.build_report(scn.to_dict(), load, [], [], {})\n"
+        "assert soak.check_soak_schema(rep) == []\n"
+        "doc = soak.parse_summary_line(soak.summarize_soak(rep))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "    ('jax', 'jaxlib', 'gatekeeper_tpu') and sys.modules[k])\n"
+        "print(doc['mode'], load.generated > 5, bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["soak", "True", "[]"]
+
+
 def test_no_jax_import_statements():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PKG):
